@@ -1,0 +1,115 @@
+"""Batched sequenced-path window apply, slab regrow and compaction.
+
+Applies a totally-ordered ``[docs, window]`` op batch to the
+``[docs, capacity]`` segment table. Within one document ops are
+sequentially dependent, so the window is a sequential loop; parallelism
+is across documents.
+
+- ``apply_window``: the serving entry. A table on the CPU goes through
+  the plain loop of ``merge_step.fused_step``; a table on a CUDA device
+  goes through the Hopper window kernel (``cuda_merge``), which launches
+  or raises — there is no fallback.
+- ``apply_window_plain``: the plain loop on any device, which the
+  kernel is held against.
+- ``pad_capacity`` / ``compact``: plain torch (the reference has them
+  as XLA programs, not Pallas kernels).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .merge_step import fused_step, state_to_table, table_to_state
+from .segment_table import NOT_REMOVED, OPOFF_BOUND, OpBatch, SegmentTable
+
+
+def check_capacity(capacity: int) -> None:
+    """The phase-1 op_off composite (j*OPOFF_BOUND + op_off) must fit
+    int32, so the largest usable capacity is 8192."""
+    assert capacity * OPOFF_BOUND < 2**31, (
+        f"capacity {capacity} overflows the op_off composite"
+    )
+
+
+def apply_window_plain(table: SegmentTable, batch: OpBatch) -> SegmentTable:
+    """Plain torch: loop ``fused_step`` over the window columns. Runs on
+    any device; returns a new table and leaves ``table`` untouched."""
+    check_capacity(table.capacity)
+    st = table_to_state(table)
+    for w in range(batch.kind.shape[-1]):
+        op = {f: getattr(batch, f)[:, w:w + 1] for f in OpBatch._fields}
+        st = fused_step(st, op)
+    return state_to_table(st)
+
+
+def apply_window(table: SegmentTable, batch: OpBatch) -> SegmentTable:
+    """Apply a [docs, window] op batch; returns a new table (the input
+    table stays valid — the sidecar's regrow re-applies a window to the
+    pre-dispatch snapshot)."""
+    device = table.device
+    if device.type == "cpu":
+        return apply_window_plain(table, batch)
+    if device.type != "cuda":
+        raise ValueError(f"no window apply for device {device}")
+    from .cuda_merge import apply_window_cuda
+
+    return apply_window_cuda(table, batch)
+
+
+def pad_capacity(table: SegmentTable, new_capacity: int) -> SegmentTable:
+    """Widen the slot slab without touching content: live slots and
+    doc scalars carry over, new slots are garbage beyond ``count``
+    (``removed_seq`` filled with NOT_REMOVED), and ``overflow`` is
+    cleared."""
+    grow = new_capacity - table.capacity
+    assert grow > 0
+
+    def pad(t, fill=0):
+        return F.pad(t, (0, grow), value=fill)
+
+    return table._replace(
+        length=pad(table.length),
+        seq=pad(table.seq),
+        client=pad(table.client),
+        removed_seq=pad(table.removed_seq, int(NOT_REMOVED)),
+        removers=pad(table.removers),
+        op_id=pad(table.op_id),
+        op_off=pad(table.op_off),
+        is_marker=pad(table.is_marker),
+        prop=F.pad(table.prop, (0, 0, 0, grow)),
+        overflow=torch.zeros_like(table.overflow),
+    )
+
+
+def compact(table: SegmentTable) -> SegmentTable:
+    """Zamboni (mergeTree.ts:800): drop tombstones at/below the collab
+    window, compacting live slots to the slab head. A stable sort of
+    ``~keep`` per row gives the same permutation as the reference's
+    stable argsort, so the whole slab — garbage tail included — matches
+    it."""
+    C = table.capacity
+    j = torch.arange(C, dtype=torch.int32, device=table.device)
+    alive = j < table.count[:, None]
+    drop = alive & (table.removed_seq != int(NOT_REMOVED)) & (
+        table.removed_seq <= table.min_seq[:, None]
+    )
+    keep = alive & ~drop
+    src = torch.sort((~keep).to(torch.uint8), dim=-1, stable=True).indices
+
+    def take(t):
+        return torch.gather(t, 1, src)
+
+    return table._replace(
+        length=take(table.length),
+        seq=take(table.seq),
+        client=take(table.client),
+        removed_seq=take(table.removed_seq),
+        removers=take(table.removers),
+        op_id=take(table.op_id),
+        op_off=take(table.op_off),
+        is_marker=take(table.is_marker),
+        prop=torch.gather(
+            table.prop, 1, src[..., None].expand(-1, -1, table.prop.shape[-1])
+        ),
+        count=keep.sum(dim=-1, dtype=torch.int32),
+    )
