@@ -12,8 +12,10 @@ tiers at a small size, and times the kernel beside its plain version.
 
 The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
-record. Every phase runs on every call; any failure exits non-zero
-without those lines, as does a machine with no CUDA device or a
+record. The times lines cover the window rungs 16 / 32 / 64 at the
+main shape and the capacities 4096 and 8192, with the NOOP share of
+each timed batch. Every phase runs on every call; any failure exits
+non-zero without those lines, as does a machine with no CUDA device or a
 directory without the port package. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -39,11 +41,18 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 MAIN_DOCS, MAIN_CAPACITY = 4096, 1024
 KERNEL_SHAPES = [  # (docs, capacity, window)
     (5, 16, 16),          # count near C: the overflow flag
+    (4, 3, 8),            # a capacity below one quad of slots
+    (7, 100, 16),         # ragged: C not a multiple of a thread's slots
     (64, 128, 64),
     (1000, 1024, 64),
+    (128, 2048, 64),      # the first grow rung
     (64, 4096, 64),       # edge of the shared-memory variant
+    (3, 5001, 16),        # ragged device-memory variant
     (16, 8192, 32),       # device-memory variant
 ]
+NOOP_SHAPE = (64, 1024, 16)  # a window made only of NOOPs
+TIME_WINDOWS = (16, 32, 64)  # the main path's window rungs
+TIME_WIDE = ((1024, 4096), (512, 8192))  # (docs, capacity) at W = 64
 
 
 def log(*parts) -> None:
@@ -51,83 +60,7 @@ def log(*parts) -> None:
 
 
 # ----------------------------------------------------------------------
-# seeded random state and op windows (kernel vs plain)
-
-def random_table(rng, docs, cap, device):
-    from fluidframework_tpu_torch.ops.segment_table import (
-        NOT_REMOVED, PROP_CHANNELS, SegmentTable,
-    )
-
-    shape = (docs, cap)
-    count = rng.integers(0, cap * 3 // 4 + 1, docs)
-    count[: max(1, docs // 4)] = cap - rng.integers(0, 3, max(1, docs // 4))
-    removed = rng.random(shape) < 0.3
-    arrays = dict(
-        length=rng.integers(1, 7, shape),
-        seq=rng.integers(1, 50, shape),
-        client=rng.integers(0, 32, shape),
-        removed_seq=np.where(removed, rng.integers(1, 60, shape),
-                             int(NOT_REMOVED)),
-        removers=np.where(
-            removed, rng.integers(-2**31, 2**31, shape, dtype=np.int64), 0),
-        op_id=rng.integers(0, 100, shape),
-        op_off=rng.integers(0, 1000, shape),
-        is_marker=(rng.random(shape) < 0.1),
-        prop=rng.integers(0, 4, (docs, cap, PROP_CHANNELS)),
-        count=count,
-        min_seq=rng.integers(0, 20, docs),
-        overflow=np.zeros(docs),
-    )
-    return SegmentTable(**{
-        f: torch.tensor(np.asarray(a).astype(np.int32), device=device)
-        for f, a in arrays.items()
-    })
-
-
-def random_batch(rng, table, window, device):
-    """Ops drawn around each document's current visible length, so
-    inserts, boundary splits, out-of-range ranges and NOOPs all occur."""
-    from fluidframework_tpu_torch.ops.segment_table import (
-        KIND_INSERT, KIND_REMOVE, NOT_REMOVED, OpBatch,
-    )
-
-    docs = table.docs
-    count = table.count.cpu().numpy()
-    live = np.arange(table.capacity)[None, :] < count[:, None]
-    alive = live & (table.removed_seq.cpu().numpy() == int(NOT_REMOVED))
-    est = np.where(alive, table.length.cpu().numpy(), 0).sum(axis=1)
-    seq = np.full(docs, 60)
-    min_seq = table.min_seq.cpu().numpy().astype(np.int64)
-    cols = {f: np.zeros((docs, window), np.int64) for f in OpBatch._fields}
-    for w in range(window):
-        seq += 1
-        min_seq += rng.integers(0, 2, docs)
-        kind = rng.choice(4, docs, p=[0.45, 0.25, 0.15, 0.15])
-        pos1 = (rng.random(docs) * (est + 5)).astype(np.int64)
-        pos2 = pos1 + rng.integers(1, 13, docs)
-        length = rng.integers(1, 7, docs)
-        cols["kind"][:, w] = kind
-        cols["pos1"][:, w] = pos1
-        cols["pos2"][:, w] = pos2
-        cols["seq"][:, w] = seq
-        cols["refseq"][:, w] = np.maximum(
-            min_seq, seq - rng.integers(1, 16, docs))
-        cols["client"][:, w] = rng.integers(0, 32, docs)
-        cols["op_id"][:, w] = rng.integers(0, 100, docs)
-        cols["length"][:, w] = length
-        cols["is_marker"][:, w] = rng.random(docs) < 0.1
-        cols["prop_key"][:, w] = rng.integers(0, 4, docs)
-        cols["prop_val"][:, w] = rng.integers(0, 5, docs)
-        cols["min_seq"][:, w] = min_seq
-        est = np.where((kind == KIND_INSERT) & (pos1 <= est), est + length,
-                       est)
-        cut = np.clip(np.minimum(pos2, est) - pos1, 0, None)
-        est = np.where(kind == KIND_REMOVE, est - cut, est)
-    return OpBatch(**{
-        f: torch.tensor(a.astype(np.int32), device=device)
-        for f, a in cols.items()
-    })
-
+# kernel vs plain on seeded random states and op windows
 
 def max_abs_err(a, b) -> int:
     return max(
@@ -136,29 +69,52 @@ def max_abs_err(a, b) -> int:
     )
 
 
-def phase_kernel(seed: int) -> int:
+def _first_difference(got, want) -> str:
+    """Field, document and slot of the first element where two tables
+    differ, with both values."""
+    for f, x, y in zip(want._fields, got, want):
+        diff = (x != y).nonzero()
+        if len(diff):
+            at = tuple(int(i) for i in diff[0])
+            return (f"first at {f}{list(at)}: kernel {int(x[at])}, plain "
+                    f"{int(y[at])} ({len(diff)} elements differ)")
+    return "none"
+
+
+def _check_window(table, batch, what: str):
+    """Kernel and plain version on the same inputs; returns the plain
+    result and the max abs error, raises unless bit-exact."""
     from fluidframework_tpu_torch.ops.merge_kernel import (
         apply_window, apply_window_plain,
     )
 
+    got = apply_window(table, batch)
+    want = apply_window_plain(table, batch)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    bad = [f for f, x, y in zip(want._fields, got, want)
+           if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(
+            f"kernel != plain at {what}: fields {bad}, max abs err {err}; "
+            + _first_difference(got, want))
+    return want, err
+
+
+def phase_kernel(seed: int) -> int:
+    from fluidframework_tpu_torch.ops.segment_table import KIND_NOOP
+    from fluidframework_tpu_torch.testing import windows
+
     rng = np.random.default_rng(seed)
     worst = 0
     for docs, cap, window in KERNEL_SHAPES:
-        table = random_table(rng, docs, cap, "cuda")
+        table = windows.random_table(rng, docs, cap, "cuda")
         overflows = 0
         for _ in range(2):  # two chained windows
-            batch = random_batch(rng, table, window, "cuda")
-            got = apply_window(table, batch)
-            want = apply_window_plain(table, batch)
-            torch.cuda.synchronize()
-            err = max_abs_err(got, want)
+            batch = windows.random_batch(rng, table, window, "cuda")
+            want, err = _check_window(
+                table, batch, f"D={docs} C={cap} W={window}")
             worst = max(worst, err)
-            bad = [f for f, x, y in zip(want._fields, got, want)
-                   if not torch.equal(x, y)]
-            if bad:
-                raise AssertionError(
-                    f"kernel != plain at D={docs} C={cap} W={window}: "
-                    f"fields {bad}, max abs err {err}")
             overflows += int(want.overflow.sum())
             table = want
         log(f"kernel == plain  D={docs} C={cap} W={window}  "
@@ -166,6 +122,24 @@ def phase_kernel(seed: int) -> int:
             f"{overflows})")
         if (docs, cap) == (5, 16) and overflows == 0:
             raise AssertionError("the overflow case did not overflow")
+
+    docs, cap, window = NOOP_SHAPE
+    table = windows.random_table(rng, docs, cap, "cuda")
+    batch = windows.random_batch(rng, table, window, "cuda")
+    batch.kind.fill_(KIND_NOOP)
+    want, err = _check_window(
+        table, batch, f"D={docs} C={cap} W={window} (NOOPs only)")
+    worst = max(worst, err)
+    moved = [f for f in table._fields
+             if f != "min_seq" and not torch.equal(getattr(table, f),
+                                                   getattr(want, f))]
+    if moved:
+        raise AssertionError(f"a NOOP window changed {moved}")
+    if not torch.equal(want.min_seq, torch.maximum(
+            table.min_seq, batch.min_seq.amax(dim=1))):
+        raise AssertionError("a NOOP window did not advance min_seq")
+    log(f"kernel == plain  D={docs} C={cap} W={window} NOOPs only  "
+        f"(every slot bit-identical to the input, min_seq advanced)")
     return worst
 
 
@@ -407,57 +381,118 @@ def step_ops_per_slot() -> int:
     return Count.ops + Count.shift_selects // 2
 
 
-def _time_ms(fn, reps: int) -> list:
+def _time_ms(fn, reps: int, launches: int = 1) -> list:
+    """CUDA-event times of ``reps`` runs, each of ``launches`` calls
+    enqueued back to back and divided by their number, so that the
+    host's time to enqueue a call hides behind the device's work."""
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(launches):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / launches)
     return times
+
+
+def _real(kind):
+    """Insert, remove and annotate ops (kinds 0..2); any other kind is a
+    NOOP."""
+    from fluidframework_tpu_torch.ops.segment_table import KIND_ANNOTATE
+
+    return (kind >= 0) & (kind <= KIND_ANNOTATE)
+
+
+def _noop_share(batch) -> float:
+    return float(1.0 - _real(batch.kind).float().mean())
+
+
+def _live_slot_steps(table, batch) -> int:
+    """Slot-steps this window's data needs: for every insert, remove or
+    annotate step, the document's live slots (``count``) at that step,
+    from the plain loop's own counts. NOOP steps and slots at or above
+    ``count`` do not enter a view."""
+    from fluidframework_tpu_torch.ops.merge_step import (
+        fused_step, table_to_state,
+    )
+
+    st = table_to_state(table)
+    live = 0
+    for w in range(batch.kind.shape[-1]):
+        op = {f: getattr(batch, f)[:, w:w + 1] for f in batch._fields}
+        live += int((st["count"].long() * _real(op["kind"])).sum())
+        st = fused_step(st, op)
+    return live
 
 
 def phase_time(seed: int) -> dict:
     from fluidframework_tpu_torch.ops.merge_kernel import (
         apply_window, apply_window_plain,
     )
+    from fluidframework_tpu_torch.testing import windows
 
     rng = np.random.default_rng(seed + 1)
-    D, C, W = MAIN_DOCS, MAIN_CAPACITY, 64
-    table = random_table(rng, D, C, "cuda")
-    batch = random_batch(rng, table, W, "cuda")
-    got = apply_window(table, batch)
-    want = apply_window_plain(table, batch)
-    err = max_abs_err(got, want)
-    if err:
-        raise AssertionError(f"kernel != plain at the main shape ({err})")
-    for _ in range(2):
-        apply_window(table, batch)
-    kernel = _time_ms(lambda: apply_window(table, batch), 7)
+    D, C, W = MAIN_DOCS, MAIN_CAPACITY, max(TIME_WINDOWS)
+    table = windows.random_table(rng, D, C, "cuda")
+    full = windows.random_batch(rng, table, W, "cuda")
+    rec = {"max_abs_err": 0}
+    for window in TIME_WINDOWS:
+        batch = type(full)(*(t[:, :window].contiguous() for t in full))
+        _, err = _check_window(table, batch, f"D={D} C={C} W={window}")
+        for _ in range(2):
+            apply_window(table, batch)
+        kernel = _time_ms(lambda: apply_window(table, batch), 7, 10)
+        log(f"times at D={D} C={C} W={window}: kernel median "
+            f"{statistics.median(kernel):.4f} ms per launch (7 runs of 10 "
+            f"back-to-back launches: "
+            f"{[round(t, 4) for t in kernel]}), NOOP share of the batch "
+            f"{_noop_share(batch):.4f}")
+        rec["ms"] = statistics.median(kernel)  # the last: W = 64
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    batch = full
     plain = _time_ms(lambda: apply_window_plain(table, batch), 5)
     ops_per_slot = step_ops_per_slot()
     state_bytes = D * (12 * C + 3) * 4
     op_bytes = 12 * D * W * 4
     nbytes = 2 * state_bytes + op_bytes
-    nops = D * C * W * ops_per_slot
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # the work this run's data needs: the live slots of the real steps
+    live = _live_slot_steps(table, batch)
+    nops = live * ops_per_slot
     ops_ms = nops / INT32_OPS_PER_S * 1e3
-    rec = {
-        "ms": statistics.median(kernel),
+    # the plain version's count, every slot of every step
+    plain_ops_ms = D * C * W * ops_per_slot / INT32_OPS_PER_S * 1e3
+    rec.update({
         "plain_ms": statistics.median(plain),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "max_abs_err": err,
-    }
-    log(f"times at D={D} C={C} W={W}: kernel median {rec['ms']:.4f} ms "
-        f"(runs {[round(t, 4) for t in kernel]}), plain version median "
-        f"{rec['plain_ms']:.4f} ms (the plain torch loop, not a "
-        f"yardstick); bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
-        f"(bytes {nbytes} -> {bytes_ms:.4f} ms, int32 ops {nops} = "
-        f"{ops_per_slot}/slot-step -> {ops_ms:.4f} ms)")
+    })
+    log(f"times at D={D} C={C} W={W}: kernel median {rec['ms']:.4f} ms, "
+        f"plain version median {rec['plain_ms']:.4f} ms (the plain torch "
+        f"loop, not a yardstick); bound {rec['bound_ms']:.4f} ms by "
+        f"{rec['bound_by']} (bytes {nbytes} -> {bytes_ms:.4f} ms; int32 "
+        f"ops {nops} = {ops_per_slot}/slot-step over {live} live "
+        f"slot-steps of real steps, {live / (D * C * W):.4f} of D*C*W -> "
+        f"{ops_ms:.4f} ms); kernel at {rec['bound_ms'] / rec['ms']:.4f} of "
+        f"the bound. Over every slot of every step (the plain version's "
+        f"count): {plain_ops_ms:.4f} ms, kernel at "
+        f"{plain_ops_ms / rec['ms']:.4f} of that")
+    del table, full, batch
+    for docs, cap in TIME_WIDE:
+        table = windows.random_table(rng, docs, cap, "cuda")
+        batch = windows.random_batch(rng, table, W, "cuda")
+        _, err = _check_window(table, batch, f"D={docs} C={cap} W={W}")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        apply_window(table, batch)
+        kernel = _time_ms(lambda: apply_window(table, batch), 5, 10)
+        log(f"times at D={docs} C={cap} W={W}: kernel median "
+            f"{statistics.median(kernel):.4f} ms per launch (5 runs of 10 "
+            f"back-to-back launches: "
+            f"{[round(t, 4) for t in kernel]}), NOOP share of the batch "
+            f"{_noop_share(batch):.4f}")
     return rec
 
 
@@ -485,10 +520,12 @@ def main() -> int:
     try:
         build_s = cuda_merge.prewarm()
         log(f"kernel build + load: {build_s:.2f} s")
-        if cuda_merge.BUILD_LOG:
-            for line in cuda_merge.BUILD_LOG.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"  ptxas: {line.strip()}")
+        for k in cuda_merge.ptxas_report(cuda_merge.BUILD_LOG):
+            where = "shared memory" if k["smem"] else "device memory"
+            log(f"  ptxas: merge_window_kernel<Q={k['q']}> (state in "
+                f"{where}, {4 * k['q']} slots per thread): "
+                f"{k['registers']} registers, spill stores "
+                f"{k['spill_stores']} B, spill loads {k['spill_loads']} B")
         worst = phase_kernel(args.seed)
         main_rec = phase_main(args.seed)
         phase_recovery(args.seed)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -62,6 +63,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"merge_window-{digest}.so"
 
 
+def compile_source(source: Path, out: Path) -> str:
+    """Compile ``source`` into the shared library ``out`` with
+    ``NVCC_FLAGS``; returns nvcc's output (the ptxas report)."""
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) on {source.name}:\n"
+            f"{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def build() -> Path:
     """Compile the kernel library if this source has not been built
     yet; returns its path."""
@@ -71,32 +86,57 @@ def build() -> Path:
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {SOURCE.name}:\n"
-            f"{proc.stdout}{proc.stderr}")
+    log = compile_source(SOURCE, tmp)
     os.replace(tmp, path)  # atomic: a concurrent build sees all or none
-    BUILD_LOG = proc.stdout + proc.stderr
+    BUILD_LOG = log
     return path
+
+
+def ptxas_report(log: str) -> list:
+    """Registers and spills of each kernel instantiation in a ``ptxas
+    -v`` log: dicts with ``q`` and ``smem`` (the template arguments of
+    ``merge_window_kernel<Q, SMEM>``), ``registers``, ``spill_stores``
+    and ``spill_loads`` (bytes)."""
+    out, name, spills = [], "", (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            args = re.search(r"merge_window_kernelILi(\d+)ELb([01])E", name)
+            out.append({
+                "q": int(args.group(1)) if args else None,
+                "smem": args.group(2) == "1" if args else None,
+                "registers": int(m.group(1)),
+                "spill_stores": spills[0],
+                "spill_loads": spills[1],
+            })
+    return out
+
+
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C interface."""
+    lib = ctypes.CDLL(str(path))
+    lib.merge_window_launch.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.merge_window_launch.restype = ctypes.c_int
+    lib.merge_window_error_string.argtypes = [ctypes.c_int]
+    lib.merge_window_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def load_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.merge_window_launch.argtypes = [
-                ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.merge_window_launch.restype = ctypes.c_int
-            lib.merge_window_error_string.argtypes = [ctypes.c_int]
-            lib.merge_window_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = bind(build())
         return _lib
 
 
@@ -142,19 +182,28 @@ def apply_window_cuda(table: SegmentTable, batch: OpBatch) -> SegmentTable:
         _check(f"table.{f}", getattr(table, f), shape, device)
     for f in OpBatch._fields:
         _check(f"batch.{f}", getattr(batch, f), (D, W), device)
-    lib = load_library()
+    out = launch(load_library(), table, batch)
+    LAUNCHES += 1
+    return out
+
+
+def launch(lib: ctypes.CDLL, table: SegmentTable,
+           batch: OpBatch) -> SegmentTable:
+    """Launch ``lib``'s kernel on inputs already checked: a fresh output
+    table, the current stream of the table's device; raises on a refused
+    launch."""
+    D, C, W = table.docs, table.capacity, batch.kind.shape[-1]
     out = SegmentTable(*(torch.empty_like(t) for t in table))
     ptrs = (ctypes.c_void_p * 36)(
         *(t.data_ptr() for t in table),
         *(t.data_ptr() for t in out),
         *(t.data_ptr() for t in batch),
     )
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
         rc = lib.merge_window_launch(ptrs, D, C, W, stream)
     if rc != 0:
         what = ("bad arguments" if rc < 0
                 else lib.merge_window_error_string(rc).decode())
         raise RuntimeError(f"merge_window launch failed ({rc}): {what}")
-    LAUNCHES += 1
     return out
