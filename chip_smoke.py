@@ -7,14 +7,24 @@ it bit for bit against its plain torch version on the card, drives the
 SharedString merge plane end to end through ``GpuMergeSidecar`` at the
 full width of bench config2 (4096 documents x capacity 1024, 4 clients
 x 220 steps of seeded traffic) and checks every distinct stream against
-the scalar ``MergeTreeClient`` oracle, runs the grow/evict recovery
-tiers at a small size, and times the kernel beside its plain version.
+the scalar ``MergeTreeClient`` oracle, drives the three executor routes
+(scan, chunked, egwalker) over bench config14's four corpora at its
+full width (1024 documents x capacity 512, rounds of 8 messages) and
+holds one egwalker suffix window per corpus, after its walker stage,
+kernel against plain, runs
+the grow/evict recovery tiers at a small size, and times the kernel
+beside its plain version.
 
 The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
-record. The times lines cover the window rungs 16 / 32 / 64 at the
-main shape and the capacities 4096 and 8192, with the NOOP share of
-each timed batch. Every phase runs on every call; any failure exits
+record. Each "routes:" line holds one corpus x route: throughput, the
+host's and the device's time, macro-steps per round, window-kernel
+launches, grows, peak device memory and the host-sync check of the
+route's device half; the "device programs" lines time ``compact`` and
+``pad_capacity`` at the routes' shape. The times lines cover the window
+rungs 16 / 32 / 64 at the main shape and the capacities 4096 and 8192,
+with the NOOP share of each timed batch. Every phase runs on every
+call; any failure exits
 non-zero without those lines, as does a machine with no CUDA device or a
 directory without the port package. Imports nothing of JAX.
 """
@@ -22,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -45,6 +56,7 @@ KERNEL_SHAPES = [  # (docs, capacity, window)
     (7, 100, 16),         # ragged: C not a multiple of a thread's slots
     (64, 128, 64),
     (1000, 1024, 64),
+    (1024, 512, 16),      # the routes phase: config14's table, W = 16 rung
     (128, 2048, 64),      # the first grow rung
     (64, 4096, 64),       # edge of the shared-memory variant
     (3, 5001, 16),        # ragged device-memory variant
@@ -207,7 +219,7 @@ def phase_main(seed: int) -> dict:
         raw.append(stream)
     wrapped = [_wrap(s) for s in raw]
     sidecar = GpuMergeSidecar(max_docs=MAIN_DOCS, capacity=MAIN_CAPACITY,
-                              device="cuda")
+                              executor="scan", device="cuda")
     doc_ids = [f"doc-{d}" for d in range(MAIN_DOCS)]
     for doc in doc_ids:
         sidecar.track(doc, "d", "s")
@@ -244,8 +256,8 @@ def phase_main(seed: int) -> dict:
         raise AssertionError("main path left the device path")
     if launches <= 0:
         raise AssertionError("main path never launched the window kernel")
-    log(f"main path: {MAIN_DOCS} docs x capacity {MAIN_CAPACITY}, "
-        f"{rounds} rounds, {real} real ops, wall {wall:.3f} s "
+    log(f"main path: {MAIN_DOCS} docs x capacity {MAIN_CAPACITY}, route "
+        f"{sidecar.executor}, {rounds} rounds, {real} real ops, wall {wall:.3f} s "
         f"(ingest {ingest_s:.3f} s, pack {sidecar.stats['pack_s']:.3f} s, "
         f"settle {sidecar.stats['settle_s']:.3f} s), "
         f"{real / wall:.1f} ops/s, launches {launches}, grows "
@@ -263,16 +275,274 @@ def phase_main(seed: int) -> dict:
 
 
 def _device_busy_ms(prof) -> dict:
-    """Device time of a CUDA-only profiler trace: the total, and the five
-    largest event names (kernels and copies)."""
-    by_name = {}
+    """Device time of a CUDA-only profiler trace: the total, the number
+    of device events (kernel launches and copies), and the five largest
+    event names."""
+    by_name, events = {}, 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0)
         if us > 0:
             by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+            events += e.count
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return {"total": sum(by_name.values()),
+    return {"total": sum(by_name.values()), "events": events,
             "top": [(n[:60], ms) for n, ms in top]}
+
+
+# ----------------------------------------------------------------------
+# routes: scan, chunked and egwalker at bench config14's full width
+
+ROUTES = ("scan", "chunked", "egwalker")
+ROUTES_DOCS, ROUTES_CAPACITY, ROUTES_MAX_CAPACITY = 1024, 512, 2048
+ROUTES_STREAMS, ROUTES_ROUND = 16, 8  # distinct streams; messages per round
+
+
+def route_corpus(kind: str) -> list:
+    """The 16 distinct streams of one config14 corpus (``bench.py``'s
+    seeds and weights: 3 clients x 120 steps, 4 for the concurrent)."""
+    from fluidframework_tpu_torch.testing import (
+        FuzzConfig, record_op_stream, record_sequential_stream,
+    )
+
+    out = []
+    for i in range(ROUTES_STREAMS):
+        if kind == "sequential":
+            _, s = record_sequential_stream(seed=14000 + i, n_clients=3,
+                                            n_steps=120)
+        elif kind == "remove_heavy":
+            _, s = record_sequential_stream(seed=14300 + i, n_clients=3,
+                                            n_steps=120, remove_weight=0.45)
+        elif kind == "concurrent":
+            _, s = record_op_stream(FuzzConfig(
+                n_clients=4, n_steps=120, seed=14100 + i,
+                insert_weight=0.55, remove_weight=0.25,
+                annotate_weight=0.05, process_weight=0.05))
+        else:
+            _, s = record_op_stream(FuzzConfig(
+                n_clients=3, n_steps=120, seed=14200 + i,
+                insert_weight=0.55, remove_weight=0.25,
+                annotate_weight=0.05, process_weight=0.15))
+        out.append(s)
+    return out
+
+
+def _guard_device_half(sidecar) -> dict:
+    """Run every device half of ``sidecar``'s dispatches (the program's
+    apply, after its host-to-device copy and before the settle) with
+    CUDA sync debugging set to "error", so any host<->device sync in it
+    raises. Returns the counter of guarded calls."""
+    seen = {"calls": 0}
+    inner = sidecar._apply_program
+
+    def guarded(table, program):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(table, program)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            seen["calls"] += 1
+
+    sidecar._apply_program = guarded
+    return seen
+
+
+def _hold_suffix_dispatch(sidecar) -> dict:
+    """Keep the device inputs and output of one egwalker dispatch whose
+    concurrent suffix holds real ops: the first that also runs a walker
+    stage, else the first with a suffix. ``_check_suffix`` holds its
+    suffix window kernel against plain after the timed run. Costs one
+    dispatch's tables kept alive (inside the peak memory)."""
+    held = {"rank": 0}
+    pending = {"rank": 0, "real": 0}
+    compile_inner = sidecar._compile_program
+    apply_inner = sidecar._apply_program
+
+    def compile_hook(arrays):
+        program = compile_inner(arrays)
+        suffix = program.get("suffix")
+        real = 0 if suffix is None else int(_real(suffix["kind"]).sum())
+        pending["real"] = real
+        pending["rank"] = 0 if real == 0 else (
+            2 if program["prefix"] is not None else 1)
+        return program
+
+    def apply_hook(table, program):
+        out = apply_inner(table, program)
+        if pending["rank"] > held["rank"]:
+            held.update(pending, table=table, program=program, out=out)
+        pending["rank"] = 0  # a grow's re-apply is the same dispatch
+        return out
+
+    sidecar._compile_program = compile_hook
+    sidecar._apply_program = apply_hook
+    return held
+
+
+def _check_suffix(held: dict, what: str) -> str:
+    """Re-run the held dispatch's walker stage, then hold its suffix
+    window kernel against plain, every field bit for bit, and the
+    dispatch's own output against the plain result. Launches here are
+    comparisons: the caller has read the route's count already."""
+    from fluidframework_tpu_torch.ops.event_graph import (
+        EG_K, apply_window_egwalker,
+    )
+
+    table, program = held["table"], held["program"]
+    walked = program["prefix"] is not None
+    if walked:
+        table = apply_window_egwalker(table, program["prefix"], K=EG_K,
+                                      steps=program["steps"])
+    suffix = program["suffix"]
+    D, W = suffix.kind.shape
+    where = f"{what} suffix D={D} C={table.capacity} W={W}"
+    want, _ = _check_window(table, suffix, where)
+    bad = [f for f, x, y in zip(want._fields, held["out"], want)
+           if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(
+            f"dispatch output != plain at {where}: fields {bad}; "
+            + _first_difference(held["out"], want))
+    return (f"suffix kernel == plain D={D} C={table.capacity} W={W} "
+            f"({held['real']} real ops, "
+            + ("after a walker stage" if walked else "no walker stage")
+            + "; all fields bit-exact, and the dispatch's own output)")
+
+
+def run_route(route: str, raw: list, device: str = "cuda",
+              docs: int = ROUTES_DOCS) -> dict:
+    """One corpus through ``GpuMergeSidecar(executor=route)``: every
+    document gets a stream (16 distinct, tiled), fed through ``ingest``
+    8 messages per document per round, ``apply`` after each round.
+    Returns the sidecar, its table (numpy) and the run's numbers."""
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.ops.host_bridge import fetch
+    from fluidframework_tpu_torch.service import GpuMergeSidecar
+
+    wrapped = [_wrap(s) for s in raw]
+    sidecar = GpuMergeSidecar(
+        max_docs=docs, capacity=ROUTES_CAPACITY,
+        max_capacity=ROUTES_MAX_CAPACITY, executor=route, device=device)
+    doc_ids = [f"doc-{d}" for d in range(docs)]
+    for doc in doc_ids:
+        sidecar.track(doc, "d", "s")
+    guard = _guard_device_half(sidecar)
+    held = _hold_suffix_dispatch(sidecar) if route == "egwalker" else None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_merge.LAUNCHES = 0
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        longest = max(len(s) for s in wrapped)
+        rounds, real, ingest_s = 0, 0, 0.0
+        for start in range(0, longest, ROUTES_ROUND):
+            t_in = time.perf_counter()
+            for d, doc in enumerate(doc_ids):
+                for msg in wrapped[d % len(raw)][start:start + ROUTES_ROUND]:
+                    sidecar.ingest(doc, msg)
+            ingest_s += time.perf_counter() - t_in
+            real += sidecar.apply()
+            rounds += 1
+        sidecar.sync()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = cuda_merge.LAUNCHES
+    rec = {
+        "sidecar": sidecar, "doc_ids": doc_ids, "launches": launches,
+        "busy": _device_busy_ms(prof), "rounds": rounds, "real": real,
+        "wall": wall, "ingest_s": ingest_s, "guarded": guard["calls"],
+        "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+        "table": fetch(sidecar._table), "suffix_check": None,
+    }
+    if held is not None and held["rank"]:
+        rec["suffix_check"] = _check_suffix(held, route)
+    return rec
+
+
+def phase_routes() -> None:
+    """Each config14 corpus through the three routes: every distinct
+    stream equals the oracle, the macro-step routes' live state equals
+    the scan route's, no document leaves the device path unless the
+    scan's did, and the egwalker suffix launches the window kernel on
+    the corpora that have one."""
+    from fluidframework_tpu_torch.testing.windows import live_difference
+
+    for kind in ("sequential", "remove_heavy", "concurrent", "mixed"):
+        raw = route_corpus(kind)
+        scan = None
+        for route in ROUTES:
+            rec = run_route(route, raw)
+            sidecar = rec.pop("sidecar")
+            _check_docs(sidecar, [(rec["doc_ids"][i], raw[i])
+                                  for i in range(len(raw))])
+            hosted = set(sidecar._host)
+            if route == "scan":
+                scan = {"table": rec["table"], "hosted": hosted}
+            else:
+                if not hosted <= scan["hosted"]:
+                    raise AssertionError(
+                        f"{kind}/{route}: documents {sorted(hosted)} left "
+                        f"the device path (scan: {sorted(scan['hosted'])})")
+                diff = live_difference(scan["table"], rec["table"])
+                if diff is not None:
+                    raise AssertionError(
+                        f"{kind}/{route}: live state != scan route's: {diff}")
+            if route == "egwalker" and kind in ("concurrent", "mixed"):
+                if rec["launches"] < 1:
+                    raise AssertionError(f"{kind}/egwalker: the suffix "
+                                         "never launched merge_window")
+                if rec["suffix_check"] is None:
+                    raise AssertionError(f"{kind}/egwalker: no suffix "
+                                         "window was held against plain")
+            st, busy = sidecar.stats, rec["busy"]
+            log(f"routes: {kind} {route}: {ROUTES_DOCS} docs x capacity "
+                f"{ROUTES_CAPACITY} (now {sidecar.capacity}), "
+                f"{rec['rounds']} rounds, {rec['real']} real ops, wall "
+                f"{rec['wall']:.3f} s, {rec['real'] / rec['wall']:.1f} ops/s "
+                f"(ingest {rec['ingest_s']:.3f} s, pack+compile "
+                f"{st['pack_s']:.3f} s, settle {st['settle_s']:.3f} s); "
+                f"device busy {busy['total']:.3f} ms "
+                f"({busy['total'] / rec['rounds']:.3f} ms and "
+                f"{busy['events'] / rec['rounds']:.1f} device events per "
+                f"round), top "
+                + ", ".join(f"{n} {ms:.3f} ms" for n, ms in busy["top"][:3])
+                + f"; macro-steps {st['macro_steps']} "
+                f"({st['macro_steps'] / rec['rounds']:.2f} per round); "
+                f"merge_window launches {rec['launches']}; grows "
+                f"{sidecar.grow_count}; span_splits {st['span_splits']}; "
+                f"host docs {len(hosted)}; peak device memory "
+                f"{rec['peak_mib']:.1f} MiB; host syncs in the device half: "
+                f"none in {rec['guarded']} dispatches (sync debug 'error'); "
+                f"{len(raw)} streams == oracle"
+                + ("" if route == "scan" else "; live state == scan")
+                + ("" if route != "egwalker" else
+                   f"; {rec['suffix_check'] or 'no suffix with real ops'}"))
+            del sidecar, rec
+        if kind == "sequential":
+            time_table_programs(scan["table"])
+
+
+def time_table_programs(arrays: dict) -> None:
+    """CUDA-event times of the plain torch table programs the routes
+    share, on a routes-phase table: ``compact`` (every 8th apply) and
+    ``pad_capacity`` (a grow's first half)."""
+    from fluidframework_tpu_torch import convert
+    from fluidframework_tpu_torch.ops.merge_kernel import (
+        compact, pad_capacity,
+    )
+
+    table = convert.table_from_numpy(arrays, "cuda")
+    C = table.capacity
+    for name, fn in (("compact", lambda: compact(table)),
+                     (f"pad_capacity {C} -> {2 * C}",
+                      lambda: pad_capacity(table, 2 * C))):
+        fn()
+        ms = _time_ms(fn, 5, 10)
+        log(f"device programs: {name} at D={table.docs} C={C}: median "
+            f"{statistics.median(ms):.4f} ms per call (5 runs of 10 "
+            f"back-to-back calls: {[round(t, 4) for t in ms]})")
 
 
 # ----------------------------------------------------------------------
@@ -299,7 +569,7 @@ def phase_recovery(seed: int) -> None:
     streams.append(props_log)
 
     sidecar = GpuMergeSidecar(max_docs=4, capacity=16, max_capacity=64,
-                              device="cuda")
+                              executor="scan", device="cuda")
     docs = [f"r-{i}" for i in range(len(streams))]
     wrapped = [_wrap(s) for s in streams]
     for doc in docs:
@@ -528,6 +798,7 @@ def main() -> int:
                 f"{k['spill_stores']} B, spill loads {k['spill_loads']} B")
         worst = phase_kernel(args.seed)
         main_rec = phase_main(args.seed)
+        phase_routes()
         phase_recovery(args.seed)
         time_rec = phase_time(args.seed)
         worst = max(worst, time_rec.pop("max_abs_err"))

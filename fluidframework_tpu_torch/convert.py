@@ -44,11 +44,23 @@ def table_to_numpy(table: SegmentTable) -> dict[str, np.ndarray]:
     return out
 
 
+def program_to_device(arrays: Mapping[str, np.ndarray],
+                      device: Device) -> dict[str, torch.Tensor]:
+    """A compiled op program's ``[docs, window]`` arrays (an ``OpBatch``
+    window, a chunk program, an egwalker prefix) -> int32 tensors on
+    ``device``, one host-to-device copy per field. Tensors already
+    given are moved to ``device`` as they are."""
+    return {
+        f: a.to(device) if isinstance(a, torch.Tensor)
+        else _to_device(a, device)
+        for f, a in arrays.items()
+    }
+
+
 def batch_from_numpy(arrays, device: Device) -> OpBatch:
     """Op arrays (a dict keyed by ``OpBatch`` field, or an ``OpBatch``
     of numpy arrays) -> a torch ``OpBatch`` on ``device``."""
     if isinstance(arrays, tuple):
         arrays = arrays._asdict()
-    return OpBatch(**{
-        f: _to_device(arrays[f], device) for f in OpBatch._fields
-    })
+    return OpBatch(**program_to_device(
+        {f: arrays[f] for f in OpBatch._fields}, device))

@@ -2,7 +2,8 @@
 kernel against its plain version: tables with a random garbage tail
 and some documents filled to capacity, and ops drawn around each
 document's visible length so that inserts, boundary splits, out-of-range
-ranges and NOOPs all occur."""
+ranges and NOOPs all occur. ``live_difference`` compares two executors'
+tables under the routes' contract."""
 from __future__ import annotations
 
 import numpy as np
@@ -86,3 +87,32 @@ def random_batch(rng, table: SegmentTable, window: int, device) -> OpBatch:
         f: torch.tensor(a.astype(np.int32), device=device)
         for f, a in cols.items()
     })
+
+
+# slot fields compared on the live slots [0, count) of a document
+LIVE_FIELDS = ("length", "seq", "client", "removed_seq", "removers",
+               "op_id", "op_off", "is_marker", "prop")
+
+
+def live_difference(want: dict, got: dict) -> str | None:
+    """The first difference between two fetched tables (numpy dicts)
+    under the executors' contract, or None: ``count``, ``min_seq`` and
+    ``overflow`` of every document, and the live slots ``[0, count)``
+    of every slot field of each document not overflowed (the
+    macro-step routes park an overflowed document where the scan
+    applies on; slots past ``count`` are garbage in every route)."""
+    for f in ("count", "min_seq", "overflow"):
+        bad = np.flatnonzero(want[f] != got[f])
+        if bad.size:
+            d = int(bad[0])
+            return f"{f}[{d}]: {want[f][d]} != {got[f][d]}"
+    for d in np.flatnonzero(want["overflow"] == 0):
+        n = int(want["count"][d])
+        for f in LIVE_FIELDS:
+            a, b = want[f][d, :n], got[f][d, :n]
+            bad = np.argwhere(a != b)
+            if bad.size:
+                at = tuple(int(i) for i in bad[0])
+                return (f"doc {d} {f}{list(at)}: {a[at]} != {b[at]} "
+                        f"(live slots {n})")
+    return None

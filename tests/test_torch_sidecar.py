@@ -217,7 +217,11 @@ def test_duplicate_delivery_is_dropped():
 
 
 def test_unported_routes_raise():
-    with pytest.raises(NotImplementedError, match="A6"):
-        GpuMergeSidecar(device="cpu", executor="chunked")
+    """The chunked and egwalker routes construct, a route typo is loud,
+    and the pool tier still waits for ROADMAP A7."""
+    for route in ("chunked", "egwalker"):
+        assert GpuMergeSidecar(device="cpu", executor=route).executor == route
+    with pytest.raises(ValueError, match="executor='egwalkr'"):
+        GpuMergeSidecar(device="cpu", executor="egwalkr")
     with pytest.raises(NotImplementedError, match="A7"):
         GpuMergeSidecar(device="cpu", seq_mesh=object())
