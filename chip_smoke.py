@@ -12,8 +12,11 @@ the scalar ``MergeTreeClient`` oracle, drives the three executor routes
 full width (1024 documents x capacity 512, rounds of 8 messages) and
 holds one egwalker suffix window per corpus, after its walker stage,
 kernel against plain, runs
-the grow/evict recovery tiers at a small size, and times the kernel
-beside its plain version.
+the grow/evict recovery tiers at a small size, drives the SharedTree
+plane (``TreeSidecar``) on both routes over 32 recorded three-writer
+streams tiled to 1024 documents (capacity 128, grown once to 256)
+against the scalar ``EditManager``, and times the kernel beside its
+plain version.
 
 The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
@@ -21,7 +24,11 @@ record. Each "routes:" line holds one corpus x route: throughput, the
 host's and the device's time, macro-steps per round, window-kernel
 launches, grows, peak device memory and the host-sync check of the
 route's device half; the "device programs" lines time ``compact`` and
-``pad_capacity`` at the routes' shape. The times lines cover the window
+``pad_capacity`` at the routes' shape. Each "tree:" line holds one tree
+route: commits/s, the host's time, a device trace of the last rounds,
+grows, host documents, ring evictions, peak memory and the host-sync
+check; the "tree programs" lines time one window step's ring rebase and
+each route's forest apply. The times lines cover the window
 rungs 16 / 32 / 64 at the main shape and the capacities 4096 and 8192,
 with the NOOP share of each timed batch. Every phase runs on every
 call; any failure exits
@@ -31,6 +38,9 @@ directory without the port package. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -326,13 +336,14 @@ def route_corpus(kind: str) -> list:
     return out
 
 
-def _guard_device_half(sidecar) -> dict:
-    """Run every device half of ``sidecar``'s dispatches (the program's
-    apply, after its host-to-device copy and before the settle) with
-    CUDA sync debugging set to "error", so any host<->device sync in it
-    raises. Returns the counter of guarded calls."""
+def _guard_device_half(sidecar, attr: str = "_apply_program") -> dict:
+    """Run every device half of ``sidecar``'s dispatches (its method
+    ``attr``: the program's apply, after its host-to-device copy and
+    before the settle) with CUDA sync debugging set to "error", so any
+    host<->device sync in it raises. Returns the counter of guarded
+    calls."""
     seen = {"calls": 0}
-    inner = sidecar._apply_program
+    inner = getattr(sidecar, attr)
 
     def guarded(table, program):
         torch.cuda.set_sync_debug_mode("error")
@@ -342,7 +353,7 @@ def _guard_device_half(sidecar) -> dict:
             torch.cuda.set_sync_debug_mode("default")
             seen["calls"] += 1
 
-    sidecar._apply_program = guarded
+    setattr(sidecar, attr, guarded)
     return seen
 
 
@@ -408,8 +419,7 @@ def _check_suffix(held: dict, what: str) -> str:
             + "; all fields bit-exact, and the dispatch's own output)")
 
 
-def run_route(route: str, raw: list, device: str = "cuda",
-              docs: int = ROUTES_DOCS) -> dict:
+def run_route(route: str, raw: list) -> dict:
     """One corpus through ``GpuMergeSidecar(executor=route)``: every
     document gets a stream (16 distinct, tiled), fed through ``ingest``
     8 messages per document per round, ``apply`` after each round.
@@ -420,9 +430,9 @@ def run_route(route: str, raw: list, device: str = "cuda",
 
     wrapped = [_wrap(s) for s in raw]
     sidecar = GpuMergeSidecar(
-        max_docs=docs, capacity=ROUTES_CAPACITY,
-        max_capacity=ROUTES_MAX_CAPACITY, executor=route, device=device)
-    doc_ids = [f"doc-{d}" for d in range(docs)]
+        max_docs=ROUTES_DOCS, capacity=ROUTES_CAPACITY,
+        max_capacity=ROUTES_MAX_CAPACITY, executor=route, device="cuda")
+    doc_ids = [f"doc-{d}" for d in range(ROUTES_DOCS)]
     for doc in doc_ids:
         sidecar.track(doc, "d", "s")
     guard = _guard_device_half(sidecar)
@@ -590,6 +600,305 @@ def phase_recovery(seed: int) -> None:
         f"{sidecar.grow_count}, evictions {sidecar.evict_count} (one at "
         f"ingest: 5 property keys), host docs {sidecar.host_mode_docs()}; "
         f"all {len(docs)} docs == oracle")
+
+
+# ----------------------------------------------------------------------
+# tree plane: TreeSidecar on both routes at a thousand-document width
+
+TREE_ROUTES = ("atom", "macro")
+TREE_DOCS, TREE_CAPACITY, TREE_MAX_CAPACITY = 1024, 128, 512
+TREE_STREAMS, TREE_SEED = 32, 1700  # distinct recorded documents
+TREE_PREFIX = 10  # per stream: 3 joins, the attach, 6 seed commits
+TREE_ROUND = 3    # per stream: one op per writer per round
+TREE_PROFILED_ROUNDS = 8  # the device trace's steady window
+
+
+def _tree_replay(stream) -> str:
+    """Root signature of a fresh scalar ``EditManager`` fed every tree
+    op of ``stream`` as a peer commit (the host replica's path)."""
+    from fluidframework_tpu_torch.models.tree import (
+        Commit, EditManager, root_signature,
+    )
+    from fluidframework_tpu_torch.protocol import (
+        MessageType, tree_change_from_json,
+    )
+
+    em = EditManager(session_id="oracle")
+    for msg in stream:
+        env = msg.contents if isinstance(msg.contents, dict) else {}
+        if msg.type != MessageType.OPERATION or env.get("kind") != "op":
+            continue
+        em.add_sequenced_change(Commit(
+            msg.client_id, msg.sequence_number,
+            msg.reference_sequence_number,
+            copy.deepcopy(tree_change_from_json(env["contents"]))), False)
+    return root_signature(em.forest().content().get("root", []))
+
+
+def tree_corpus() -> list:
+    """``(signature, stream)`` of the 32 recorded SharedTree documents
+    (``record_tree_stream(1700 + i)``: 3 writers x 24 rounds over 192
+    seeded nodes); each recorder's converged writers are held equal to
+    a fresh ``EditManager`` replay of its stream."""
+    from fluidframework_tpu_torch.testing import record_tree_stream
+
+    out = []
+    for i in range(TREE_STREAMS):
+        sig, stream = record_tree_stream(TREE_SEED + i)
+        if _tree_replay(stream) != sig:
+            raise AssertionError(f"tree stream {TREE_SEED + i}: the "
+                                 "writers != the EditManager replay")
+        out.append((sig, stream))
+    return out
+
+
+def run_tree(route: str, recorded: list) -> dict:
+    """The recorded streams, tiled over the 1024 documents, through
+    ``TreeSidecar(executor=route)``: the seeding prefix, then one
+    authored round (one op per writer) per document, ``apply`` after
+    each, then ``sync``. Returns the sidecar, its table (numpy), the
+    last dispatch with its input table, and the run's numbers."""
+    from fluidframework_tpu_torch import convert
+    from fluidframework_tpu_torch.service import TreeSidecar
+
+    sidecar = TreeSidecar(max_docs=TREE_DOCS, capacity=TREE_CAPACITY,
+                          max_capacity=TREE_MAX_CAPACITY, executor=route,
+                          device="cuda")
+    doc_ids = [f"tree-{d}" for d in range(TREE_DOCS)]
+    for doc in doc_ids:
+        sidecar.track(doc, "d", "t")
+    guard = _guard_device_half(sidecar, "_apply_dispatch")
+    held = {}
+    inner = sidecar._apply_dispatch
+
+    def hold(table, dispatch):
+        held.update(table=table, dispatch=dispatch)
+        return inner(table, dispatch)
+
+    sidecar._apply_dispatch = hold
+    longest = max(len(s) for _, s in recorded)
+    bounds = [0] + list(range(TREE_PREFIX, longest, TREE_ROUND)) + [longest]
+    steady = len(bounds) - 1 - TREE_PROFILED_ROUNDS
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        t0 = time.perf_counter()
+        rounds, real, ingest_s = 0, 0, 0.0
+        for start, stop in zip(bounds, bounds[1:]):
+            if rounds == steady:
+                # the device trace covers the last rounds only: a
+                # steady window (capacity 256, one round per apply)
+                torch.cuda.synchronize()
+                prof = stack.enter_context(torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]))
+                t_prof = time.perf_counter()
+            t_in = time.perf_counter()
+            for d, doc in enumerate(doc_ids):
+                for msg in recorded[d % len(recorded)][1][start:stop]:
+                    sidecar.ingest(doc, msg)
+            ingest_s += time.perf_counter() - t_in
+            real += sidecar.apply()
+            rounds += 1
+        sidecar.sync()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof_wall = time.perf_counter() - t_prof
+    return {
+        "sidecar": sidecar, "doc_ids": doc_ids, "rounds": rounds,
+        "real": real, "wall": wall, "ingest_s": ingest_s,
+        "busy": _device_busy_ms(prof), "prof_wall": prof_wall,
+        "guarded": guard["calls"],
+        "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+        "table": convert.tree_table_to_numpy(sidecar._table),
+        "held": held,
+    }
+
+
+def _ring_activity(recorded: list) -> dict:
+    """For every tree op of the corpus: how many of its document's last
+    ``TRUNK_RING`` earlier ops were sequenced after its ref — the ring
+    entries its rebase can act on (the others are muted whole)."""
+    from fluidframework_tpu_torch.ops.tree_apply import TRUNK_RING
+
+    counts: dict = {}
+    for _, stream in recorded:
+        ring: collections.deque = collections.deque(maxlen=TRUNK_RING)
+        for msg in stream:
+            env = msg.contents if isinstance(msg.contents, dict) else {}
+            if env.get("kind") != "op":
+                continue
+            newer = sum(s > msg.reference_sequence_number for s in ring)
+            counts[newer] = counts.get(newer, 0) + 1
+            ring.append(msg.sequence_number)
+    return dict(sorted(counts.items()))
+
+
+def _tree_live_difference(a, b):
+    """First field, and its first document, where two numpy TreeTables
+    differ on ``count``, ``overflow``, every ring field, or the live
+    slots ``[0, count)`` of ``content`` / ``value``; None when they
+    agree."""
+    live = np.arange(a.content.shape[1])[None, :] < a.count[:, None]
+    fields = [("count", a.count, b.count),
+              ("overflow", a.overflow, b.overflow),
+              ("ring_seq", a.ring_seq, b.ring_seq),
+              ("ring_session", a.ring_session, b.ring_session)]
+    fields += [(f"ring.{name}", x, y)
+               for name, x, y in zip(a.ring._fields, a.ring, b.ring)]
+    fields += [(f"{name} (live slots)", np.where(live, getattr(a, name), 0),
+                np.where(live, getattr(b, name), 0))
+               for name in ("content", "value")]
+    for name, x, y in fields:
+        bad = np.flatnonzero((x != y).reshape(len(x), -1).any(axis=1))
+        if bad.size:
+            return f"{name}, document {bad[0]}"
+    return None
+
+
+def _check_tree_tiles(sidecar, rec, recorded, route) -> None:
+    """Every one of the 1024 documents, not only the first of each
+    stream: its signature equals its stream's EditManager replay, and
+    its row equals the row of the stream's first document (``d % 32``)
+    on count, ring and live slots — a fault that shows only at a high
+    document index (a gather, roll or fill over the wrong axis, a leak
+    between documents) fails here."""
+    from fluidframework_tpu_torch.convert import tree_map
+
+    n = len(recorded)
+    for d, doc in enumerate(rec["doc_ids"]):
+        if sidecar.signature(doc, "d", "t") != recorded[d % n][0]:
+            raise AssertionError(f"tree {route}: document {d} (stream "
+                                 f"{d % n}) != its EditManager replay")
+    table = rec["table"]
+    firsts = tree_map(table, lambda a: a[np.arange(len(a)) % n])
+    diff = _tree_live_difference(table, firsts)
+    if diff is not None:
+        raise AssertionError(f"tree {route}: a tiled row differs from its "
+                             f"stream's first row at {diff}")
+
+
+def phase_tree() -> None:
+    """Both tree routes over the recorded corpus at 1024 documents:
+    every document equals its stream's EditManager replay, the two
+    routes' live tables are equal, the slab grows once (128 -> 256), no
+    document leaves the device, and no host sync happens in a device
+    half. Then CUDA-event times of one window step's programs."""
+    t0 = time.perf_counter()
+    recorded = tree_corpus()
+    corpus_s = time.perf_counter() - t0
+    lines, tables, held = [], {}, None
+    for route in TREE_ROUTES:
+        t_run = time.perf_counter()
+        rec = run_tree(route, recorded)
+        run_s = time.perf_counter() - t_run
+        sidecar = rec.pop("sidecar")
+        _check_tree_tiles(sidecar, rec, recorded, route)
+        if sidecar.host_mode_docs() or sidecar.ring_evict_count:
+            raise AssertionError(
+                f"tree {route}: {sidecar.host_mode_docs()} documents on "
+                f"the host, {sidecar.ring_evict_count} ring evictions")
+        if (sidecar.grow_count, sidecar.capacity) != (1, 2 * TREE_CAPACITY):
+            raise AssertionError(
+                f"tree {route}: {sidecar.grow_count} grows to capacity "
+                f"{sidecar.capacity}, expected one to {2 * TREE_CAPACITY}")
+        if sidecar.overflowed():
+            raise AssertionError(f"tree {route}: a document overflowed")
+        tables[route] = rec.pop("table")
+        if route == "atom":
+            held = rec["held"]
+        st, busy = sidecar.stats, rec["busy"]
+        lines.append(
+            f"tree: {route}: {TREE_DOCS} docs x capacity {TREE_CAPACITY} "
+            f"-> {sidecar.capacity} (max {TREE_MAX_CAPACITY}), ring "
+            f"{sidecar.ring}, {sidecar.width} atoms; {rec['rounds']} "
+            f"rounds, {rec['real']} commits, wall {rec['wall']:.3f} s, "
+            f"{rec['real'] / rec['wall']:.1f} commits/s (ingest "
+            f"{rec['ingest_s']:.3f} s, pack {st['pack_s']:.3f} s, settle "
+            f"{st['settle_s']:.3f} s); device trace of the last "
+            f"{TREE_PROFILED_ROUNDS} rounds (wall {rec['prof_wall']:.3f} "
+            f"s): busy {busy['total']:.3f} ms "
+            f"({busy['total'] / TREE_PROFILED_ROUNDS:.3f} ms and "
+            f"{busy['events'] / TREE_PROFILED_ROUNDS:.1f} device events "
+            f"per round), idle share "
+            f"{1 - busy['total'] / (rec['prof_wall'] * 1e3):.6f}, top "
+            + ", ".join(f"{n} {ms:.3f} ms" for n, ms in busy["top"][:3])
+            + f"; grows {sidecar.grow_count} ({TREE_CAPACITY} -> "
+            f"{sidecar.capacity}); host docs {sidecar.host_mode_docs()}; "
+            f"ring evictions {sidecar.ring_evict_count}; peak device "
+            f"memory {rec['peak_mib']:.1f} MiB; host syncs in the device "
+            f"half: none in {rec['guarded']} dispatches (sync debug "
+            f"'error'); all {TREE_DOCS} docs ({len(recorded)} streams) "
+            f"== EditManager replay, each row == its stream's first; "
+            f"{run_s - rec['wall']:.3f} s around the run (profiler, "
+            f"table copy)")
+        del sidecar, rec
+    diff = _tree_live_difference(tables["atom"], tables["macro"])
+    if diff is not None:
+        raise AssertionError(f"tree: atom and macro tables differ at {diff}")
+    for line in lines:
+        log(line + "; live table == the other route's")
+    log(f"tree: corpus of {len(recorded)} streams recorded and replayed "
+        f"in {corpus_s:.3f} s (host); commits by the number of ring "
+        f"entries newer than their ref (of {held['table'].ring_seq.shape[1]}"
+        f"): {_ring_activity(recorded)}")
+    time_tree_programs(held)
+
+
+def time_tree_programs(held: dict) -> None:
+    """Times of one window step's device programs on the tree phase's
+    last dispatch (its first step, on the table it was applied to): the
+    ring rebase (16 over-steps), and the forest apply on each route,
+    whose outputs are held equal first. Each gets CUDA-event times of
+    back-to-back calls (which carry the host's issue rate) and its
+    device time per call from a profiler trace of 10 calls (the sum of
+    its kernels and copies, what a hand kernel would replace)."""
+    from fluidframework_tpu_torch.ops.tree_apply import (
+        TreeAtoms, apply_atom_route, apply_macro_route, move_payloads,
+        rebase_over_ring,
+    )
+
+    table, dispatch = held["table"], held["dispatch"]
+    prog = dispatch.program
+    atoms = TreeAtoms(*(f[0] for f in prog.atoms))
+    step = (prog.seq[0], prog.ref[0], prog.session[0])
+    rebased = rebase_over_ring(table, atoms, *step)
+    moves = move_payloads(table, rebased)
+    rows = dispatch.rows[0]
+    apply_args = (table.content, table.value, table.count, rebased,
+                  prog.payload[0], *moves, rows)
+    outs = [fn(*apply_args) for fn in (apply_atom_route, apply_macro_route)]
+    live = torch.arange(table.slots, device=table.content.device) \
+        < outs[0][2].unsqueeze(1)
+    for x, y in zip(outs[0], outs[1]):
+        if x.dim() == 2:
+            x, y = torch.where(live, x, 0), torch.where(live, y, 0)
+        if not torch.equal(x, y):
+            raise AssertionError("tree programs: atom != macro apply")
+    for name, fn in (
+            ("ring rebase (16 over-steps)",
+             lambda: rebase_over_ring(table, atoms, *step)),
+            (f"atom apply ({rows} rows)",
+             lambda: apply_atom_route(*apply_args)),
+            ("macro apply", lambda: apply_macro_route(*apply_args))):
+        fn()
+        ms = _time_ms(fn, 5, 10)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        busy = _device_busy_ms(prof)
+        log(f"tree programs: {name} at D={table.docs} S={table.slots} "
+            f"A={atoms.kind.shape[1]}: median {statistics.median(ms):.4f} "
+            f"ms per call (5 runs of 10 back-to-back calls: "
+            f"{[round(t, 4) for t in ms]}); device "
+            f"{busy['total'] / 10:.4f} ms and {busy['events'] / 10:.1f} "
+            f"device events per call (trace of 10 calls), top "
+            + ", ".join(f"{n} {t / 10:.4f} ms" for n, t in busy["top"][:3]))
+
 
 
 # ----------------------------------------------------------------------
@@ -800,6 +1109,7 @@ def main() -> int:
         main_rec = phase_main(args.seed)
         phase_routes()
         phase_recovery(args.seed)
+        phase_tree()
         time_rec = phase_time(args.seed)
         worst = max(worst, time_rec.pop("max_abs_err"))
     except Exception:  # noqa: BLE001 - report any failed phase, exit 1

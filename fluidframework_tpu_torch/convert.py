@@ -1,21 +1,29 @@
-"""State carried across: numpy <-> torch for segment tables and op
-batches.
+"""State carried across: numpy <-> torch for segment tables, op
+batches, and the tree plane's forest tables and window programs.
 
 The numpy side is the reference package's host form: the dict that its
 ``host_bridge.fetch`` returns (``removers`` as uint32) and the
 ``[docs, window]`` int32 op arrays of its ``OpBatch`` / ``pack_rows``.
 The torch side stores ``removers`` as the int32 view of the same bits.
+For the tree plane the numpy side is the reference's ``TreeTable`` /
+``TreeProgram`` of int32 arrays (its ``make_tree_table`` and
+``pack_tree_window`` give them; a JAX table converts with
+``np.asarray`` per field).
 Only numpy crosses the boundary, so the two packages can be fed
 identical state without either importing the other.
 """
 from __future__ import annotations
 
-from typing import Mapping, Union
+from typing import TYPE_CHECKING, Mapping, Union
 
 import numpy as np
 import torch
 
 from .ops.segment_table import OpBatch, SegmentTable
+from .ops.tree_atoms import TreeAtoms
+
+if TYPE_CHECKING:
+    from .ops.tree_apply import TreeProgram, TreeTable
 
 Device = Union[torch.device, str]
 
@@ -64,3 +72,37 @@ def batch_from_numpy(arrays, device: Device) -> OpBatch:
         arrays = arrays._asdict()
     return OpBatch(**program_to_device(
         {f: arrays[f] for f in OpBatch._fields}, device))
+
+
+def tree_map(tree, fn):
+    """``fn`` over every leaf array of a TreeTable / TreeProgram (their
+    ``ring`` / ``atoms`` field is a nested TreeAtoms)."""
+    return type(tree)(*(
+        TreeAtoms(*(fn(a) for a in f)) if isinstance(f, tuple)
+        else fn(f) for f in tree))
+
+
+def tree_table_from_numpy(table, device: Device) -> TreeTable:
+    """A TreeTable of host arrays (the reference's, or any array-likes)
+    -> a torch TreeTable on ``device``."""
+    # imported here: ops.tree_apply reaches this module through
+    # ops.event_graph
+    from .ops.tree_apply import TreeTable
+
+    return tree_map(TreeTable(*table),
+                    lambda a: _to_device(np.asarray(a), device))
+
+
+def tree_table_to_numpy(table: TreeTable) -> TreeTable:
+    """Inverse of ``tree_table_from_numpy``: a TreeTable of int32 numpy
+    arrays."""
+    return tree_map(table, lambda t: t.cpu().numpy())
+
+
+def tree_program_to_device(program, device: Device) -> TreeProgram:
+    """A packed TreeProgram of numpy arrays -> int32 tensors on
+    ``device``, one host-to-device copy per field."""
+    from .ops.tree_apply import TreeProgram
+
+    return tree_map(TreeProgram(*program),
+                    lambda a: _to_device(np.asarray(a), device))

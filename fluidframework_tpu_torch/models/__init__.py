@@ -1,2 +1,2 @@
-"""Host-side models: the scalar merge tree (oracle and host-eviction
-replica)."""
+"""Host-side models: the scalar merge tree and the scalar SharedTree core
+(the oracles and host-eviction replicas)."""

@@ -1,6 +1,6 @@
-"""The merge plane's tensor layer: segment table, host bridge, the
-plain step, the window apply and its Hopper kernel, and the two
-macro-step executor routes.
+"""The tensor layer: the merge plane's segment table, host bridge, plain
+step, window apply and its Hopper kernel, and two macro-step executor
+routes; the tree plane's atom codec, batched rebase and forest apply.
 
 The entry points below are exported lazily: this package file imports
 no submodule until one of its names is asked for, so ``convert`` and
@@ -13,7 +13,13 @@ cycle.
   ``apply_window_chunked`` (device), ``macro_steps``, ``CHUNK_K``;
 - ``event_graph``: ``build_event_graph`` (host),
   ``apply_window_egwalker`` and ``apply_batch_egwalker`` (device),
-  ``EXECUTOR_ROUTES``, ``EG_K``, ``validate_executor``.
+  ``EXECUTOR_ROUTES``, ``EG_K``, ``validate_executor``;
+- ``tree_kernel``: ``rebase_atoms``, ``rebase_over_trunk`` (the tree
+  plane's batched rebase);
+- ``tree_apply``: ``encode_tree_commit``, ``pack_tree_window``,
+  ``window_extent`` (host), ``apply_tree_window``,
+  ``pad_tree_capacity``, ``make_tree_table`` (device),
+  ``TREE_EXECUTOR_ROUTES``, ``TRUNK_RING``.
 """
 from importlib import import_module
 
@@ -32,6 +38,16 @@ _EXPORTS = {
     "apply_window_egwalker": "event_graph",
     "build_event_graph": "event_graph",
     "validate_executor": "event_graph",
+    "rebase_atoms": "tree_kernel",
+    "rebase_over_trunk": "tree_kernel",
+    "TREE_EXECUTOR_ROUTES": "tree_apply",
+    "TRUNK_RING": "tree_apply",
+    "apply_tree_window": "tree_apply",
+    "encode_tree_commit": "tree_apply",
+    "make_tree_table": "tree_apply",
+    "pack_tree_window": "tree_apply",
+    "pad_tree_capacity": "tree_apply",
+    "window_extent": "tree_apply",
 }
 
 __all__ = sorted(_EXPORTS)

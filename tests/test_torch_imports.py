@@ -24,6 +24,19 @@ ROUTE_MODULES = (
     "fluidframework_tpu_torch.ops.event_graph",
     "fluidframework_tpu_torch.service.gpu_sidecar",
 )
+# the tree plane's modules, named for the same reason
+TREE_MODULES = (
+    "fluidframework_tpu_torch.models.tree.changeset",
+    "fluidframework_tpu_torch.models.tree.forest",
+    "fluidframework_tpu_torch.models.tree.anchors",
+    "fluidframework_tpu_torch.models.tree.editmanager",
+    "fluidframework_tpu_torch.protocol.tree_payload",
+    "fluidframework_tpu_torch.testing.tree_fuzz",
+    "fluidframework_tpu_torch.ops.tree_atoms",
+    "fluidframework_tpu_torch.ops.tree_kernel",
+    "fluidframework_tpu_torch.ops.tree_apply",
+    "fluidframework_tpu_torch.service.tree_sidecar",
+)
 
 _CHILD = r"""
 import importlib, json, pkgutil, sys
@@ -49,7 +62,7 @@ def test_port_import_loads_no_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
     out = json.loads(proc.stdout)
     assert len(out["names"]) >= 20
-    assert set(ROUTE_MODULES) <= set(out["names"])
+    assert set(ROUTE_MODULES + TREE_MODULES) <= set(out["names"])
     assert out["bad"] == []
 
 
@@ -59,7 +72,7 @@ def _sources():
 
 def test_source_scan_covers_the_route_modules():
     scanned = set(_sources())
-    for name in ROUTE_MODULES:
+    for name in ROUTE_MODULES + TREE_MODULES:
         path = REPO.joinpath(*name.split(".")).with_suffix(".py")
         assert path in scanned, name
 
@@ -86,6 +99,10 @@ def test_ops_package_exports_the_route_entry_points():
 
     assert ops.apply_window_chunked is merge_chunk.apply_window_chunked
     assert ops.apply_batch_egwalker is event_graph.apply_batch_egwalker
+    from fluidframework_tpu_torch.ops import tree_apply, tree_kernel
+
+    assert ops.apply_tree_window is tree_apply.apply_tree_window
+    assert ops.rebase_atoms is tree_kernel.rebase_atoms
     for name in ops.__all__:
         assert getattr(ops, name) is not None, name
     with pytest.raises(AttributeError):
@@ -97,6 +114,20 @@ def test_sidecar_without_gpu_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         GpuMergeSidecar()
+
+
+def test_tree_plane_without_gpu_raises():
+    from fluidframework_tpu_torch.ops import make_tree_table
+    from fluidframework_tpu_torch.service import TreeSeqPool, TreeSidecar
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_tree_table(2, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TreeSidecar()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TreeSeqPool(None, 64)
 
 
 def test_cpu_apply_never_touches_the_build(monkeypatch):
