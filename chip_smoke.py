@@ -15,8 +15,13 @@ kernel against plain, runs
 the grow/evict recovery tiers at a small size, drives the SharedTree
 plane (``TreeSidecar``) on both routes over 32 recorded three-writer
 streams tiled to 1024 documents (capacity 128, grown once to 256)
-against the scalar ``EditManager``, and times the kernel beside its
-plain version.
+against the scalar ``EditManager``, drives the pool tiers (16 long
+documents of 1024 admitted to a one-shard ``MeshShardedPool`` at
+capacity 8192 through the sidecar; bench config10's mesh pool on 1, 2
+and 4 shards and its viral-member migration; the sequence-sharded
+window at 64 x 4096 x 64 on 2 and 4 shards against the kernel; a
+2-shard ``SeqShardedPool`` serving 4 long documents), and times the
+kernel beside its plain version.
 
 The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
@@ -28,7 +33,11 @@ route's device half; the "device programs" lines time ``compact`` and
 route: commits/s, the host's time, a device trace of the last rounds,
 grows, host documents, ring evictions, peak memory and the host-sync
 check; the "tree programs" lines time one window step's ring rebase and
-each route's forest apply. The times lines cover the window
+each route's forest apply. Each "pool:" line holds one pool cell and
+its mesh's device list (a one-card machine repeats ``cuda:0``: shards
+on one card, not a scaling figure); the "pool programs" lines time the
+doc-sharded dispatch, the row moves and the window floor. The times
+lines cover the window
 rungs 16 / 32 / 64 at the main shape and the capacities 4096 and 8192,
 with the NOOP share of each timed batch. Every phase runs on every
 call; any failure exits
@@ -900,6 +909,541 @@ def time_tree_programs(held: dict) -> None:
             + ", ".join(f"{n} {t / 10:.4f} ms" for n, t in busy["top"][:3]))
 
 
+# ----------------------------------------------------------------------
+# pool: the pool tiers and sharding, every mesh on the card
+
+POOL_DOCS, POOL_CAPACITY, POOL_MAX_CAPACITY = 1024, 1024, 2048
+POOL_LONG_DOCS, POOL_LONG_DISTINCT, POOL_LONG_STEPS = 16, 4, 2000
+# bench config10 "full" (bench.py:1909-1914): members per shard, rounds,
+# ops per member per round, steps per stream; pool capacity 128
+MIG_MEMBERS, MIG_ROUNDS, MIG_OPS, MIG_STEPS, MIG_CAPACITY = 16, 40, 4, 80, 128
+SEQ_DOCS, SEQ_CAPACITY, SEQ_WINDOW = 64, 4096, 64
+SEQ_TIER_SHARE = 0.7  # of each long stream, for the 2-shard seq tier
+
+
+def long_corpus(seed: int) -> list:
+    """The long documents' distinct recorded streams: config2's recorder
+    with more steps, longer inserts and no removes, so each ends with
+    2048 to 8192 live segments (past the primary ladder's top)."""
+    from fluidframework_tpu_torch.testing import FuzzConfig, record_op_stream
+
+    return [record_op_stream(FuzzConfig(
+        n_clients=2, n_steps=POOL_LONG_STEPS, insert_weight=0.89,
+        remove_weight=0.0, annotate_weight=0.03, process_weight=0.08,
+        max_insert_len=12, seed=seed * 1000 + 500 + i))[1]
+        for i in range(POOL_LONG_DISTINCT)]
+
+
+def _check_tiled(sidecar, doc_ids, stream_of, oracles) -> None:
+    """Every document's text and signature equal its stream's oracle
+    (``oracles[stream_of[d]]``, one replay per distinct stream)."""
+    for d, doc in enumerate(doc_ids):
+        text, sig = oracles[stream_of[d]]
+        if sidecar.text(doc, "d", "s") != text:
+            raise AssertionError(f"{doc}: text differs from the oracle")
+        if sidecar.signature(doc, "d", "s") != sig:
+            raise AssertionError(f"{doc}: signature differs from the oracle")
+
+
+def _hook_pool(pool) -> dict:
+    """Count the window-kernel launches of ``pool``'s dispatches and
+    keep the inputs of its last dispatch with real ops."""
+    from fluidframework_tpu_torch.ops import cuda_merge
+
+    seen = {"launches": 0, "calls": 0}
+    inner = pool._apply
+
+    def hooked(table, arrays):
+        before = cuda_merge.LAUNCHES
+        out = inner(table, arrays)
+        seen["launches"] += cuda_merge.LAUNCHES - before
+        seen["calls"] += 1
+        if _real(arrays["kind"]).any():
+            seen.update(table=table, arrays=arrays)
+        return out
+
+    pool._apply = hooked
+    return seen
+
+
+def _shard_devices(n: int) -> list:
+    """``n`` shard devices: distinct cards where the machine has them,
+    else the one card repeated (same-device shards)."""
+    cards = torch.cuda.device_count()
+    return [torch.device("cuda", i % cards) for i in range(n)]
+
+
+def phase_pool_longdoc(seed: int, long_raw: list) -> dict:
+    """The long-document tier through the sidecar at its default width:
+    1008 documents of config2's streams and 16 long ones on a
+    [1024, 1024 -> 2048] slab whose pool is a one-shard MeshShardedPool
+    at capacity 8192; the long documents must land in the pool, none on
+    the host, every document equal to its oracle, and one captured pool
+    dispatch at capacity 8192 kernel against plain on every field."""
+    from fluidframework_tpu_torch import convert
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.parallel import MeshShardedPool, make_mesh
+    from fluidframework_tpu_torch.service import GpuMergeSidecar
+    from fluidframework_tpu_torch.testing import FuzzConfig, record_op_stream
+
+    short_raw = [record_op_stream(FuzzConfig(
+        n_clients=4, n_steps=220, seed=seed * 1000 + i))[1]
+        for i in range(16)]
+    distinct = short_raw + long_raw
+    n_short = POOL_DOCS - POOL_LONG_DOCS
+    stream_of = [d % 16 for d in range(n_short)] + [
+        16 + d % len(long_raw) for d in range(POOL_LONG_DOCS)]
+    wrapped = [_wrap(s) for s in distinct]
+    mesh = make_mesh(_shard_devices(1))
+    sidecar = GpuMergeSidecar(
+        max_docs=POOL_DOCS, capacity=POOL_CAPACITY,
+        max_capacity=POOL_MAX_CAPACITY, seq_mesh=mesh, executor="scan",
+        device="cuda")
+    pool = sidecar._pool
+    if not isinstance(pool, MeshShardedPool) or \
+            pool.capacity != min(4 * POOL_MAX_CAPACITY, 8192):
+        raise AssertionError(f"select_pool built {type(pool).__name__} at "
+                             f"capacity {pool.capacity}")
+    doc_ids = [f"pool-{d}" for d in range(POOL_DOCS)]
+    for doc in doc_ids:
+        sidecar.track(doc, "d", "s")
+    seen = _hook_pool(pool)
+    cuda_merge.LAUNCHES = 0
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        longest = max(len(s) for s in wrapped)
+        chunks = (16, 32, 48)
+        start, rounds, real, ingest_s = 0, 0, 0, 0.0
+        while start < longest:
+            stop = start + chunks[rounds % len(chunks)]
+            t_in = time.perf_counter()
+            for d, doc in enumerate(doc_ids):
+                for msg in wrapped[stream_of[d]][start:stop]:
+                    sidecar.ingest(doc, msg)
+            ingest_s += time.perf_counter() - t_in
+            real += sidecar.apply()
+            rounds += 1
+            start = stop
+        sidecar.sync()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = cuda_merge.LAUNCHES
+    busy = _device_busy_ms(prof)
+    t_or = time.perf_counter()
+    oracles = [_oracle(s) for s in distinct]
+    _check_tiled(sidecar, doc_ids, stream_of, oracles)
+    check_s = time.perf_counter() - t_or
+    counts = (sidecar.pool_admit_count, sidecar.pooled_docs(),
+              sidecar.host_mode_docs())
+    if counts != (POOL_LONG_DOCS, POOL_LONG_DOCS, 0) or sidecar.overflowed():
+        raise AssertionError(f"pool admissions / pooled / host documents "
+                             f"{counts}, expected ({POOL_LONG_DOCS}, "
+                             f"{POOL_LONG_DOCS}, 0)")
+    live = pool.fetch()["count"][[pool.row_of[s] for s in pool.members]]
+    if live.min() < POOL_MAX_CAPACITY or live.max() > pool.capacity:
+        raise AssertionError(f"long documents end with {live.min()}-"
+                             f"{live.max()} live segments")
+    if seen["launches"] <= 0 or launches < seen["launches"]:
+        raise AssertionError(f"merge_window launches: {launches} on the "
+                             f"path, {seen['launches']} by the pool")
+    table = seen["table"].shards[0]
+    batch = convert.batch_from_numpy(seen["arrays"], "cuda")
+    W = batch.kind.shape[-1]
+    _, err = _check_window(table, batch,
+                           f"pool dispatch D={table.docs} C={table.capacity} "
+                           f"W={W}")
+    st = sidecar.stats
+    log(f"pool: long-document tier: mesh {[str(d) for d in mesh.device_list()]}"
+        f", {POOL_DOCS} docs ({n_short} config2 streams tiled, "
+        f"{POOL_LONG_DOCS} long docs of {len(long_raw)} distinct "
+        f"{POOL_LONG_STEPS}-step streams, {live.min()}-{live.max()} live "
+        f"segments at the end) x capacity {POOL_CAPACITY} -> "
+        f"{sidecar.capacity} (max {POOL_MAX_CAPACITY}), pool "
+        f"{type(pool).__name__} at capacity {pool.capacity}; {rounds} "
+        f"rounds, {real} real ops, wall {wall:.3f} s, {real / wall:.1f} "
+        f"ops/s (ingest {ingest_s:.3f} s, pack {st['pack_s']:.3f} s, settle "
+        f"{st['settle_s']:.3f} s, pool dispatches {st['pool_s']:.3f} s, "
+        f"admission replay {st['admit_s']:.3f} s); grows "
+        f"{sidecar.grow_count}, pool admissions {sidecar.pool_admit_count}, "
+        f"pooled docs {sidecar.pooled_docs()}, host docs "
+        f"{sidecar.host_mode_docs()}; pool dispatches "
+        f"{pool.dispatch_count} incremental + replay chunks "
+        f"{seen['calls'] - pool.dispatch_count}, merge_window launches "
+        f"{launches} on this path, {seen['launches']} of them by the pool; "
+        f"device busy {busy['total']:.3f} ms, "
+        f"idle share {1 - busy['total'] / (wall * 1e3):.6f}, top "
+        + ", ".join(f"{n} {ms:.3f} ms" for n, ms in busy["top"][:3])
+        + f"; all {POOL_DOCS} docs == oracle ({check_s:.3f} s); pool "
+        f"dispatch kernel == plain at D={table.docs} C={table.capacity} "
+        f"W={W}, all fields")
+    return {"max_abs_err": err, "pool_launches": seen["launches"]}
+
+
+def _prefixed(encs: list, n: int, rounds: int, per_round: int):
+    """config10's feed: fresh streams truncated to a base prefix, and
+    the full op lists to feed ``per_round`` ops at a time."""
+    streams, fulls = [], []
+    for i in range(n):
+        full = list(encs[i % len(encs)].ops)
+        base = max(8, len(full) - rounds * per_round)
+        streams.append(dataclasses.replace(encs[i % len(encs)],
+                                           ops=full[:base]))
+        fulls.append(full)
+    return streams, fulls
+
+
+def _feed(streams, fulls, per_member: int) -> bool:
+    moved = False
+    for stream, full in zip(streams, fulls):
+        nxt = full[len(stream.ops):len(stream.ops) + per_member]
+        if nxt:
+            stream.ops.extend(nxt)
+            moved = True
+    return moved
+
+
+def phase_pool_migration():
+    """bench config10 at its full scale on MeshShardedPool: 16 members
+    per shard on meshes of 1, 2 and 4 shards (rounds per second), then
+    the viral-member phase on 4 shards against a never-migrated
+    one-shard pool and the oracle. Returns the migrated pool."""
+    from fluidframework_tpu_torch.models.mergetree import MergeTreeClient
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.ops.host_bridge import (
+        decode_stream, encode_stream, extract_text,
+    )
+    from fluidframework_tpu_torch.parallel import make_mesh
+    from fluidframework_tpu_torch.service.gpu_sidecar import select_pool
+    from fluidframework_tpu_torch.testing import FuzzConfig, record_op_stream
+
+    kmax = 4
+    encs = [encode_stream(record_op_stream(FuzzConfig(
+        n_clients=2, n_steps=MIG_STEPS, seed=4200 + i, insert_weight=0.55,
+        remove_weight=0.25, annotate_weight=0.05, process_weight=0.15))[1])
+        for i in range(MIG_MEMBERS * kmax)]
+    rates = []
+    for k in (1, 2, kmax):
+        devices = _shard_devices(k)
+        pool = select_pool(make_mesh(devices), MIG_CAPACITY, route="mesh")
+        n = MIG_MEMBERS * k
+        streams, fulls = _prefixed(encs, n, MIG_ROUNDS, MIG_OPS)
+        pool.admit(list(range(n)), streams)
+        _feed(streams, fulls, 1)
+        pool.dispatch_pending(streams)
+        cuda_merge.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = 0
+        while done < MIG_ROUNDS and _feed(streams, fulls, MIG_OPS):
+            pool.dispatch_pending(streams)
+            done += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # one window-kernel launch per shard per dispatch
+        if cuda_merge.LAUNCHES != k * done or done == 0:
+            raise AssertionError(f"config10 on {k} shards: merge_window "
+                                 f"launches {cuda_merge.LAUNCHES} in {done} "
+                                 "dispatches")
+        rates.append(f"{k} shard{'s' if k > 1 else ''} "
+                     f"{[str(d) for d in devices]}: {n} members, {done} "
+                     f"rounds in {wall:.3f} s, {done / wall:.1f} rounds/s "
+                     f"({n * done / wall:.1f} member-rounds/s), merge_window "
+                     f"launches {cuda_merge.LAUNCHES}")
+    shared = len(set(devices)) < kmax
+    log(f"pool: config10 mesh pool at capacity {MIG_CAPACITY}, "
+        f"{MIG_OPS} ops per member per round, {MIG_STEPS}-step two-client "
+        f"streams (the fuzz mix only: the flow-mix quarter needs the "
+        f"flowdoc layer, not ported): " + "; ".join(rates)
+        + ("; same-device shards (one card), not a scaling figure"
+           if shared else ""))
+
+    n_par = MIG_MEMBERS * kmax - 1  # leaves one open row
+    pool = select_pool(make_mesh(devices), MIG_CAPACITY, route="mesh")
+    oracle = select_pool(make_mesh(devices[:1]), MIG_CAPACITY, route="mesh")
+    streams, fulls = _prefixed(encs, n_par, MIG_ROUNDS, MIG_OPS)
+    pool.admit(list(range(n_par)), streams)
+    oracle.admit(list(range(n_par)), streams)
+    rounds = 0
+    while pool.migration_count == 0 and rounds < 4 * MIG_ROUNDS:
+        _feed(streams[:1], fulls[:1], 2 * MIG_OPS)   # the viral member
+        _feed(streams[1:], fulls[1:], 1)
+        pool.dispatch_pending(streams)
+        oracle.dispatch_pending(streams)
+        rounds += 1
+    if pool.migration_count == 0 or oracle.migration_count != 0:
+        raise AssertionError(f"migrations: {pool.migration_count} on "
+                             f"{kmax} shards, {oracle.migration_count} on one")
+    fetched, o_fetched = pool.fetch(), oracle.fetch()
+    for slot in range(n_par):
+        host = MergeTreeClient("oracle")
+        host.start_collaboration("oracle")
+        for msg in decode_stream(streams[slot]):
+            host.apply_msg(msg)
+        got = extract_text(fetched, streams[slot], pool.row_of[slot])
+        if got != extract_text(o_fetched, streams[slot],
+                               oracle.row_of[slot]) or got != host.get_text():
+            raise AssertionError(f"config10 member {slot}: the migrated pool "
+                                 "!= the one-shard pool or the oracle")
+    log(f"pool: config10 viral member on {kmax} shards "
+        f"{[str(d) for d in devices]}: {pool.migration_count} migration(s) "
+        f"in {rounds} rounds, the one-shard pool {oracle.migration_count}; "
+        f"shard members {[len(m) for m in pool.shard_members]}; all {n_par} "
+        f"members == the one-shard pool == the oracle")
+    return pool
+
+
+def _program_times(fn, calls: int = 10) -> tuple:
+    """CUDA-event median of 5 runs of ``calls`` back-to-back calls, and
+    the device time and device events per call from a trace of
+    ``calls`` calls."""
+    fn()
+    ms = statistics.median(_time_ms(fn, 5, calls))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy = _device_busy_ms(prof)
+    return ms, busy["total"] / calls, busy["events"] / calls
+
+
+def time_pool_programs(pool) -> None:
+    """The pool tier's table programs (B6, B7), each held against a host
+    gather or loop first: on the migrated config10 pool's 4-shard table,
+    the doc-sharded dispatch of a 4-op window (one window-kernel launch
+    per shard, the ops' upload included), ``migrate_rows`` with the
+    pool's one-document move and with a random permutation, ``take_rows``
+    on one shard and ``global_window_floor``; then the two row programs
+    on a 4-shard table at the pool's top capacity (8192)."""
+    from fluidframework_tpu_torch.convert import sharded_table_to_numpy
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.ops.merge_kernel import apply_window_plain
+    from fluidframework_tpu_torch.ops.segment_table import (
+        SegmentTable, ShardedTable,
+    )
+    from fluidframework_tpu_torch.ops.shard_moves import (
+        migrate_rows, take_rows,
+    )
+    from fluidframework_tpu_torch.parallel import (
+        apply_window_mesh_sharded, global_window_floor, shard_table,
+    )
+    from fluidframework_tpu_torch.testing import windows
+
+    rng = np.random.default_rng(10)
+
+    def joined(table):
+        return SegmentTable(*(torch.cat(f) for f in zip(*table.shards)))
+
+    def row_programs(table, label):
+        host = sharded_table_to_numpy(table)
+        n = table.docs
+        R = table.rows_per_shard
+        one = np.arange(n)
+        one[n - 1] = 0  # shard 0's first row into the last shard's last
+        perm = rng.permutation(n)
+        for name, idx in (("one-document move", one),
+                          ("random permutation", perm)):
+            got = sharded_table_to_numpy(
+                migrate_rows(ShardedTable(list(table.shards)), idx))
+            if any(not np.array_equal(got[f], host[f][idx]) for f in host):
+                raise AssertionError(f"migrate_rows ({name}) != host gather")
+            ms, dev, ev = _program_times(
+                lambda: migrate_rows(ShardedTable(list(table.shards)), idx))
+            log(f"pool programs: migrate_rows ({name}) at {label}: median "
+                f"{ms:.4f} ms per call; device {dev:.4f} ms and {ev:.1f} "
+                "device events per call (trace of 10 calls)")
+        rev = np.arange(R)[::-1].copy()
+        shard = table.shards[0]
+        got = take_rows(shard, rev)
+        if not torch.equal(got.length.cpu(), shard.length.cpu()[rev]):
+            raise AssertionError("take_rows != host gather")
+        ms, dev, ev = _program_times(lambda: take_rows(shard, rev))
+        log(f"pool programs: take_rows (one shard, rows reversed) at "
+            f"{R} x {table.capacity}: median {ms:.4f} ms per call; device "
+            f"{dev:.4f} ms and {ev:.1f} device events per call")
+
+    table = pool._table
+    label = (f"{table.docs} rows ({len(table.shards)} shards x "
+             f"{table.rows_per_shard}) x {table.capacity}")
+    batch = windows.random_batch(rng, joined(table), 4, "cpu")
+    arrays = {f: getattr(batch, f).numpy() for f in batch._fields}
+    want = apply_window_plain(joined(table), type(batch)(
+        *(t.cuda() for t in batch)))
+    before = cuda_merge.LAUNCHES
+    got = joined(apply_window_mesh_sharded(table, arrays, pool.mesh))
+    per_call = cuda_merge.LAUNCHES - before
+    if any(not torch.equal(a, b) for a, b in zip(want, got)):
+        raise AssertionError("doc-sharded dispatch != the plain step")
+    ms, dev, ev = _program_times(
+        lambda: apply_window_mesh_sharded(table, arrays, pool.mesh))
+    log(f"pool programs: apply_window_mesh_sharded (W=4) at {label} on "
+        f"{[str(d) for d in pool.mesh.device_list()]}: median {ms:.4f} ms "
+        f"per call; device {dev:.4f} ms and {ev:.1f} device events per "
+        f"call; merge_window launches per call {per_call}; == the plain "
+        "step on the joined table, every field")
+    floor = int(global_window_floor(table))
+    if floor != int(joined(table).min_seq.min()):
+        raise AssertionError("global_window_floor != the host minimum")
+    ms, dev, ev = _program_times(lambda: global_window_floor(table))
+    log(f"pool programs: global_window_floor at {label}: median {ms:.4f} "
+        f"ms per call; device {dev:.4f} ms and {ev:.1f} device events per "
+        "call")
+    row_programs(table, label)
+    wide = shard_table(windows.random_table(rng, 64, 8192, "cuda"),
+                       pool.mesh)
+    row_programs(wide, f"64 rows (4 shards x 16) x 8192")
+
+
+def phase_pool_seq(long_raw: list) -> None:
+    """The sequence-sharded window at 64 documents x capacity 4096 x 64
+    ops on 2 and 4 same-card shards against B1, then a sidecar whose
+    pool is a 2-shard SeqShardedPool serving 4 long documents."""
+    from fluidframework_tpu_torch import convert
+    from fluidframework_tpu_torch.ops.host_bridge import (
+        coalesce_noops, encode_stream, fetch, pack_rows, replay_chunked,
+    )
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.ops.merge_kernel import (
+        apply_window, apply_window_plain, compact,
+    )
+    from fluidframework_tpu_torch.ops.segment_table import make_table
+    from fluidframework_tpu_torch.parallel import (
+        apply_window_seq_sharded, make_seq_mesh,
+    )
+    from fluidframework_tpu_torch.service import GpuMergeSidecar
+    from fluidframework_tpu_torch.service.gpu_sidecar import SeqShardedPool
+    from fluidframework_tpu_torch.testing.windows import live_difference
+
+    ops = [coalesce_noops(encode_stream(s).ops) for s in long_raw]
+    prefix = {d: ops[d % len(ops)][:-SEQ_WINDOW] for d in range(SEQ_DOCS)}
+    window = {d: ops[d % len(ops)][-SEQ_WINDOW:] for d in range(SEQ_DOCS)}
+
+    def b1(table, arrays):
+        return compact(apply_window(table, convert.batch_from_numpy(
+            arrays, "cuda")))
+
+    table = replay_chunked(b1, make_table(SEQ_DOCS, SEQ_CAPACITY, "cuda"),
+                           prefix, chunk=256)
+    batch = convert.batch_from_numpy(
+        pack_rows(SEQ_DOCS, window, bucket_floor=SEQ_WINDOW), "cuda")
+    want = fetch(apply_window(table, batch))
+    times = []
+    for n in (1, 2, 4):
+        devices = _shard_devices(n)
+        mesh = make_seq_mesh(devices)
+        # the checked 2-shard window runs under a device trace (kernels
+        # from every shard thread); an untraced one gives the wall
+        torch.cuda.synchronize()
+        with (torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+              if n == 2 else contextlib.nullcontext()) as prof:
+            out = apply_window_seq_sharded(table, batch, mesh)
+            torch.cuda.synchronize()
+        diff = live_difference(want, fetch(out))
+        if diff is not None:
+            raise AssertionError(f"seq-sharded window on {n} shards != B1: "
+                                 f"{diff}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        apply_window_seq_sharded(table, batch, mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        busy = "" if prof is None else (
+            " (device {total:.3f} ms, {events} device events)".format(
+                **_device_busy_ms(prof)))
+        times.append(f"{n} {'(B1)' if n == 1 else 'shards'} "
+                     f"{[str(d) for d in devices]} {ms:.3f} ms{busy}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    apply_window_plain(table, batch)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    counts = fetch(table)["count"]
+    log(f"pool: seq-sharded window at D={SEQ_DOCS} C={SEQ_CAPACITY} "
+        f"W={SEQ_WINDOW} (live slots before the window "
+        f"{counts.min()}-{counts.max()}): live slots, count, min_seq, "
+        f"overflow == B1 on 2 and 4 shards; ms per window (host wall "
+        f"with a device sync): " + "; ".join(times)
+        + f"; the unsharded plain step on one thread {plain_ms:.3f} ms"
+        + ("; same-device shards" if len(set(devices)) < 4 else ""))
+
+    mesh = make_seq_mesh(_shard_devices(2))
+    sidecar = GpuMergeSidecar(max_docs=len(long_raw), capacity=POOL_CAPACITY,
+                              max_capacity=POOL_MAX_CAPACITY, seq_mesh=mesh,
+                              executor="scan", device="cuda")
+    pool = sidecar._pool
+    if not isinstance(pool, SeqShardedPool) or \
+            pool.capacity != 2 * POOL_MAX_CAPACITY:
+        raise AssertionError("select_pool did not build the 2-shard seq pool")
+    # depth cut: a prefix of each long stream, still past max_capacity
+    raws = [s[:int(len(s) * SEQ_TIER_SHARE)] for s in long_raw]
+    wrapped = [_wrap(s) for s in raws]
+    docs = [f"seq-{d}" for d in range(len(raws))]
+    for doc in docs:
+        sidecar.track(doc, "d", "s")
+    seq_windows = [0]
+    inner = pool._apply
+
+    def counted(table, arrays):
+        seq_windows[0] += 1
+        return inner(table, arrays)
+
+    pool._apply = counted
+    longest = max(len(s) for s in wrapped)
+    bounds = [0, longest - 96, longest - 64, longest - 32, longest]
+    cuda_merge.LAUNCHES = 0
+    t0 = time.perf_counter()
+    for start, stop in zip(bounds, bounds[1:]):
+        for doc, s in zip(docs, wrapped):
+            for msg in s[start:stop]:
+                sidecar.ingest(doc, msg)
+        sidecar.apply()
+    sidecar.sync()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_merge.LAUNCHES
+    _check_docs(sidecar, list(zip(docs, raws)))
+    counts = (sidecar.pool_admit_count, sidecar.pooled_docs(),
+              sidecar.host_mode_docs())
+    if counts != (len(docs), len(docs), 0) or launches == 0:
+        raise AssertionError(f"seq pool admissions / pooled / host {counts}, "
+                             f"merge_window launches {launches}")
+    live = pool.fetch()["count"][:len(docs)]
+    st = sidecar.stats
+    log(f"pool: seq tier: mesh {[str(d) for d in mesh.device_list()]}, "
+        f"SeqShardedPool at capacity {pool.capacity}; {len(docs)} long docs "
+        f"(the first {SEQ_TIER_SHARE} of each long stream's messages, a "
+        f"depth cut; {live.min()}-{live.max()} live segments at the end) in "
+        f"4 applies, wall {wall:.3f} s (admission replay "
+        f"{st['admit_s']:.3f} s, pool dispatches {st['pool_s']:.3f} s, "
+        f"{pool.dispatch_count} incremental); sequence-sharded windows "
+        f"{seq_windows[0]}, merge_window launches {launches} (the primary "
+        f"slab's); pooled docs {sidecar.pooled_docs()}, host docs "
+        f"{sidecar.host_mode_docs()}; all == oracle")
+
+
+def phase_pool(seed: int) -> dict:
+    marks = [("start", time.perf_counter())]
+    long_raw = long_corpus(seed)
+    marks.append(("long corpus", time.perf_counter()))
+    log(f"pool: long corpus: {len(long_raw)} streams of {POOL_LONG_STEPS} "
+        f"steps recorded in {marks[-1][1] - marks[0][1]:.3f} s (host)")
+    rec = phase_pool_longdoc(seed, long_raw)
+    marks.append(("long-document tier", time.perf_counter()))
+    pool = phase_pool_migration()
+    marks.append(("config10", time.perf_counter()))
+    time_pool_programs(pool)
+    marks.append(("pool programs", time.perf_counter()))
+    phase_pool_seq(long_raw)
+    marks.append(("seq window and tier", time.perf_counter()))
+    log(f"pool: phase wall {marks[-1][1] - marks[0][1]:.3f} s ("
+        + ", ".join(f"{name} {t - marks[i][1]:.3f} s"
+                    for i, (name, t) in enumerate(marks[1:])) + ")")
+    return rec
+
 
 # ----------------------------------------------------------------------
 # times at the main path's shape
@@ -1110,8 +1654,10 @@ def main() -> int:
         phase_routes()
         phase_recovery(args.seed)
         phase_tree()
+        pool_rec = phase_pool(args.seed)
         time_rec = phase_time(args.seed)
-        worst = max(worst, time_rec.pop("max_abs_err"))
+        worst = max(worst, time_rec.pop("max_abs_err"),
+                    pool_rec["max_abs_err"])
     except Exception:  # noqa: BLE001 - report any failed phase, exit 1
         traceback.print_exc()
         log("FAIL")

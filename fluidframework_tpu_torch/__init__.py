@@ -14,5 +14,14 @@ table on the ``atom`` or ``macro`` route (``ops.tree_apply``), served by
 ``service.tree_sidecar.TreeSidecar`` and held against the scalar
 ``EditManager`` (``models.tree``).
 
+The pool tiers and sharding: past the slab ladder's top a document
+moves to a pool on a ``parallel.DeviceMesh`` of torch devices, driven by
+one process (``service.gpu_sidecar.select_pool``): the doc-sharded
+``parallel.mesh_pool.MeshShardedPool`` (one window kernel launch per
+shard, live migration of hot documents) or the sequence-sharded
+``service.gpu_sidecar.SeqShardedPool`` (one document's slots split over
+shards, the plain step with cross-shard collectives in threads,
+``parallel.seq_shard``).
+
 The package imports torch, numpy and the standard library only.
 """

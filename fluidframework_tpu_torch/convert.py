@@ -1,5 +1,6 @@
-"""State carried across: numpy <-> torch for segment tables, op
-batches, and the tree plane's forest tables and window programs.
+"""State carried across: numpy <-> torch for segment tables (whole or
+doc-sharded), op batches, and the tree plane's forest tables and window
+programs.
 
 The numpy side is the reference package's host form: the dict that its
 ``host_bridge.fetch`` returns (``removers`` as uint32) and the
@@ -19,7 +20,7 @@ from typing import TYPE_CHECKING, Mapping, Union
 import numpy as np
 import torch
 
-from .ops.segment_table import OpBatch, SegmentTable
+from .ops.segment_table import OpBatch, SegmentTable, ShardedTable
 from .ops.tree_atoms import TreeAtoms
 
 if TYPE_CHECKING:
@@ -50,6 +51,30 @@ def table_to_numpy(table: SegmentTable) -> dict[str, np.ndarray]:
     out = {f: getattr(table, f).cpu().numpy() for f in table._fields}
     out["removers"] = out["removers"].view(np.uint32)
     return out
+
+
+def sharded_table_from_numpy(arrays: Mapping[str, np.ndarray],
+                             devices) -> ShardedTable:
+    """The reference's numpy form of a whole table -> a doc-sharded
+    table: shard ``s`` takes the ``s``-th contiguous block of rows, on
+    ``devices[s]`` (a device may repeat)."""
+    n = len(devices)
+    docs = len(arrays["count"])
+    if docs % n:
+        raise ValueError(f"{docs} rows not divisible by {n} shards")
+    R = docs // n
+    return ShardedTable([
+        table_from_numpy({f: a[s * R:(s + 1) * R] for f, a in arrays.items()},
+                         dev)
+        for s, dev in enumerate(devices)])
+
+
+def sharded_table_to_numpy(table: ShardedTable) -> dict[str, np.ndarray]:
+    """Inverse of ``sharded_table_from_numpy``: the shards' host copies,
+    shard by shard, joined along rows (global row = shard * R + row)."""
+    parts = [table_to_numpy(t) for t in table.shards]
+    return {f: np.concatenate([p[f] for p in parts])
+            for f in SegmentTable._fields}
 
 
 def program_to_device(arrays: Mapping[str, np.ndarray],

@@ -362,6 +362,23 @@ def pack_rows(n_rows: int, ops_by_row: dict,
     return arrays
 
 
+def replay_chunked(apply_fn, table, ops_by_row: dict, chunk: int = 256):
+    """Re-replay full per-row op histories in fixed-size chunked
+    dispatches, ``apply_fn(table, arrays)`` per chunk (the pool tiers'
+    rebuild and admission recipe; chunk sizing:
+    ``BucketLadder.replay_chunk``)."""
+    n_rows = table.docs
+    longest = max((len(v) for v in ops_by_row.values()), default=0)
+    for start in range(0, longest, chunk):
+        arrays = pack_rows(
+            n_rows,
+            {r: ops[start:start + chunk] for r, ops in ops_by_row.items()},
+            bucket_floor=chunk,
+        )
+        table = apply_fn(table, arrays)
+    return table
+
+
 def build_batch(streams: list[DocStream],
                 window: Optional[int] = None) -> OpBatch:
     """Pack per-doc streams into [docs, window] OpBatch numpy arrays,

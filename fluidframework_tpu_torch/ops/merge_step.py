@@ -95,15 +95,63 @@ def _min_where(mask, arr, default):
     return torch.where(mask, arr, default).amin(dim=-1, keepdim=True)
 
 
-def fused_step(st: dict, op: dict) -> dict:
+def _excl_cumsum(x):
+    # dtype=int32: torch's integer cumsum otherwise widens to int64
+    return torch.cumsum(x, dim=-1, dtype=torch.int32) - x
+
+
+def _at(arr, idx, j):
+    """arr[d, idx[d]] as a masked reduce ([D, 1]); 0 when out of range."""
+    return torch.where(j == idx, arr, 0).sum(dim=-1, keepdim=True,
+                                             dtype=torch.int32)
+
+
+class AxisPrims:
+    """The slot-axis primitives ``fused_step`` is generic over (the
+    reference's ``ops/merge_step.py::AxisPrims``).
+
+    Every slot-axis-global operation of the step goes through this
+    seam, so the same step runs on a whole table (``LOCAL_PRIMS``) and
+    with the slot axis split over shards, where these become
+    cross-shard collectives (``parallel/seq_shard.seq_prims``)."""
+
+    def __init__(self, *, iota_j=None, excl_cumsum=None,
+                 shift_right_many=None, first_true=None, at=None,
+                 min_where=None, total=None, global_capacity=None):
+        self.iota_j = iota_j or (
+            lambda D, C, device: torch.arange(
+                C, dtype=torch.int32, device=device).expand(D, C))
+        self.excl_cumsum = excl_cumsum or _excl_cumsum
+        # a whole family of same-shape fields at once, so a collective
+        # implementation pays one boundary exchange per shift distance
+        self.shift_right_many = shift_right_many or (
+            lambda arrs, k: [_shift_right(a, k) for a in arrs])
+        self.first_true = first_true or _first_true
+        self.at = at or _at
+        self.min_where = min_where or _min_where
+        # visible-length total [D, 1]: the last inclusive prefix
+        self.total = total or (lambda vlen, incl: incl[..., -1:])
+        # capacity of the whole (logical) slab; the local shape except
+        # under sequence sharding
+        self.global_capacity = global_capacity or (lambda C: C)
+
+
+LOCAL_PRIMS = AxisPrims()
+
+
+def fused_step(st: dict, op: dict, prims: AxisPrims = LOCAL_PRIMS) -> dict:
     """Apply one sequenced op per document (batched over the leading
-    doc axis) to the slot state; returns the new state."""
+    doc axis) to the slot state; returns the new state. ``prims`` is
+    the only knob: every variant gives exact integer results."""
+    _first_true, _min_where = prims.first_true, prims.min_where
     D, C = st["length"].shape
     dev = st["length"].device
     i32 = torch.int32
-    j = torch.arange(C, dtype=i32, device=dev).expand(D, C)
-    big = torch.tensor(_BIG, dtype=i32, device=dev)
-    cap = torch.tensor(C, dtype=i32, device=dev)
+    Cg = prims.global_capacity(C)
+    j = prims.iota_j(D, C, dev)
+    # fills, not copies from the host: no host<->device sync per step
+    big = torch.full((), _BIG, dtype=i32, device=dev)
+    cap = torch.full((), Cg, dtype=i32, device=dev)
     zero = torch.zeros((), dtype=i32, device=dev)
 
     count, min_seq = st["count"], st["min_seq"]
@@ -125,10 +173,9 @@ def fused_step(st: dict, op: dict) -> dict:
     vis = alive & ~below & insert_visible & ~removal_visible
     stop = alive & ~below
     vlen = torch.where(vis, st["length"], zero)
-    # dtype=int32: torch's integer cumsum otherwise widens to int64
-    E = torch.cumsum(vlen, dim=-1, dtype=i32) - vlen
+    E = prims.excl_cumsum(vlen)
     incl = E + vlen
-    total = incl[..., -1:]
+    total = prims.total(vlen, incl)
 
     opoff_comp = j * OPOFF_BOUND + st["op_off"]
 
@@ -146,14 +193,14 @@ def fused_step(st: dict, op: dict) -> dict:
     # RANGE boundary splits, both resolved on the PRE-op view
     strict1 = (E < p1) & (p1 < incl)
     idx1 = _first_true(strict1, j, cap)
-    s1 = idx1 < C
+    s1 = idx1 < Cg
     E_1 = _min_where(strict1, E, big)
     incl_1 = _min_where(strict1, incl, big)
     opoff_1 = _min_where(strict1, opoff_comp, big) % OPOFF_BOUND
     off1 = torch.where(s1, p1 - E_1, zero)
     strict2 = (E < p2) & (p2 < incl)
     idx2 = _first_true(strict2, j, cap)
-    s2 = idx2 < C
+    s2 = idx2 < Cg
     E_2 = _min_where(strict2, E, big)
     incl_2 = _min_where(strict2, incl, big)
     opoff_2 = _min_where(strict2, opoff_comp, big) % OPOFF_BOUND
@@ -166,7 +213,7 @@ def fused_step(st: dict, op: dict) -> dict:
     u1 = valid_ins | (is_range & s1)
     u2 = split_ins | (is_range & s2)
     added = u1.to(i32) + u2.to(i32)
-    overflow_now = (added > 0) & (count + added > C)
+    overflow_now = (added > 0) & (count + added > Cg)
     skip = overflow_now
     u1 = u1 & ~skip
     u2 = u2 & ~skip
@@ -180,13 +227,16 @@ def fused_step(st: dict, op: dict) -> dict:
     m1 = m == 1
     m2 = m == 2
 
+    # the slot fields and the pre-op stamp mask restructure under the
+    # same selects: shift them as one family
     fully_in = vis & (vlen > 0) & (E >= p1) & (incl <= p2)
-    arrs = {f: st[f] for f in SLOT_FIELDS}
-    arrs["_stamp"] = fully_in.to(i32)
+    names = SLOT_FIELDS + ("_stamp",)
+    arrs = [st[f] for f in SLOT_FIELDS] + [fully_in.to(i32)]
+    sh1 = prims.shift_right_many(arrs, 1)
+    sh2 = prims.shift_right_many(arrs, 2)
     mv = {
-        n: torch.where(m2, _shift_right(a, 2),
-                       torch.where(m1, _shift_right(a, 1), a))
-        for n, a in arrs.items()
+        n: torch.where(m2, b, torch.where(m1, a1, a))
+        for n, a, a1, b in zip(names, arrs, sh1, sh2)
     }
 
     at_A = u1 & (j == A)

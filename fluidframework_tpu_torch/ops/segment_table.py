@@ -19,6 +19,7 @@ CPU); ``convert.py`` moves tables between the two forms.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
@@ -93,6 +94,28 @@ def make_table(docs: int, capacity: int,
         min_seq=zeros(docs),
         overflow=zeros(docs),
     )
+
+
+@dataclass
+class ShardedTable:
+    """A segment table split by rows over devices (the doc-sharded pool's
+    placement): shard ``s`` holds the global rows ``[s * R, (s + 1) * R)``
+    on its own device, every shard with the same ``R`` rows and
+    capacity. Rows are independent lanes, so each shard applies alone."""
+
+    shards: list
+
+    @property
+    def docs(self) -> int:
+        return sum(t.docs for t in self.shards)
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.shards[0].docs
+
+    @property
+    def capacity(self) -> int:
+        return self.shards[0].capacity
 
 
 class OpBatch(NamedTuple):

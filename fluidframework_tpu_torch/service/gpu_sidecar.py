@@ -21,25 +21,29 @@ asynchronous, so the host can pack the next round while the device
 computes. ``_settle`` is the only host<->device sync: one read of the
 in-flight round's ``overflow`` flags, and recovery when one is set.
 
-OVERFLOW RECOVERY: every route writes each round into a fresh table,
-so the pre-dispatch table stays valid as a snapshot. A document that
-outgrows its slab makes the sidecar REGROW (2x): pad the snapshot and
-re-apply the same compiled program, already on the device — O(window).
-The macro-step routes PARK an overflowed document at its pre-chunk
-state where the scan applies on; the re-apply from the snapshot makes
-served state equal either way. Past ``max_capacity`` the
-document is EVICTED to a host-side scalar ``MergeTreeClient`` replica,
-seeded by decoding its canonical encoded stream. A document that cannot
-be expressed as tensors (a 33rd client, a 5th property key) is evicted
-at ingest.
-
-Scope: the three routes, the grow ladder and host eviction. The pool
-tiers are not ported yet (ROADMAP A7) and raise ``NotImplementedError``.
+OVERFLOW RECOVERY (grow, then pool, then host): every route writes each
+round into a fresh table, so the pre-dispatch table stays valid as a
+snapshot. A document that outgrows its slab makes the sidecar REGROW
+(2x): pad the snapshot and re-apply the same compiled program, already
+on the device — O(window). The macro-step routes PARK an overflowed
+document at its pre-chunk state where the scan applies on; the re-apply
+from the snapshot makes served state equal either way. Past
+``max_capacity`` the document moves to the POOL TIER (``seq_mesh=``), a
+pool on the mesh's devices built by ``select_pool``: a
+``MeshShardedPool`` (many pooled documents spread over doc shards, with
+live migration of hot ones) or a ``SeqShardedPool`` (one long
+document's slot axis split over seq shards); pooled documents dispatch
+their watermarked stream tails at the settle boundary. What even the
+pool cannot hold, or a sidecar without a pool, is EVICTED to a
+host-side scalar ``MergeTreeClient`` replica, seeded by decoding its
+canonical encoded stream. A document that cannot be expressed as
+tensors (a 33rd client, a 5th property key) is evicted at ingest.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import sys
 import time
 from typing import Optional
 
@@ -58,6 +62,7 @@ from ..ops.host_bridge import (
     fetch,
     interned_signature,
     pack_rows,
+    replay_chunked,
 )
 from ..ops.event_graph import (
     EG_K,
@@ -72,7 +77,9 @@ from ..ops.merge_chunk import (
     macro_steps,
 )
 from ..ops.merge_kernel import apply_window, compact, pad_capacity
-from ..ops.segment_table import KIND_NOOP, SegmentTable, make_table
+from ..ops.segment_table import KIND_NOOP, OpBatch, SegmentTable, make_table
+from ..parallel.mesh import DOC_AXIS, DeviceMesh
+from ..parallel.seq_shard import SEQ_AXIS, apply_window_seq_sharded
 from ..protocol.messages import MessageType, SequencedMessage
 
 
@@ -92,6 +99,248 @@ def default_executor() -> str:
     return "scan"
 
 
+class SeqShardedPool:
+    """Long-document tier: documents that outgrow the primary slab
+    ladder move to a table whose SLOT axis is split over the mesh's seq
+    shards (per-document capacity = the seq shard count x the ladder
+    top), instead of leaving the device.
+
+    Admissions are rare (a document must exhaust the primary ladder),
+    so the machinery stays simple: admitting rebuilds the pool table at
+    the next power-of-two row count and re-replays every member's
+    canonical encoded stream in chunked sequence-sharded dispatches.
+    The table rests on the mesh's first device between dispatches (a
+    dispatch splits it over the shards and joins it back); ``compact``
+    runs there, since it sorts whole rows."""
+
+    def __init__(self, mesh: DeviceMesh, per_doc_capacity: int,
+                 executor: Optional[str] = None):
+        if SEQ_AXIS not in mesh.axis_names:
+            raise ValueError(
+                f"seq pool needs a {SEQ_AXIS!r} mesh axis (got "
+                f"{mesh.axis_names}); a docs-sharded mesh routes to "
+                "MeshShardedPool (select_pool)")
+        n_seq = mesh.shape[SEQ_AXIS]
+        if per_doc_capacity % n_seq or per_doc_capacity // n_seq < 2:
+            raise ValueError(
+                f"pool capacity {per_doc_capacity} invalid for "
+                f"{n_seq}-way seq mesh")
+        doc_axes = [a for a in mesh.axis_names if a != SEQ_AXIS]
+        if doc_axes and mesh.shape[doc_axes[0]] != 1:
+            raise ValueError(
+                "pool requires an unsharded doc axis (doc_shards=1): "
+                "row admissions don't track a sharded row axis")
+        self.mesh = mesh
+        self.device = mesh.device_list()[0]
+        self.n_seq = n_seq
+        self.capacity = per_doc_capacity
+        # the chunked / egwalker macro-steps' multi-key sort does not
+        # decompose over a slot-sharded axis: those routes apply only on
+        # a one-shard seq mesh (an egwalker pool routes CHUNKED there:
+        # pool dispatches are full-history replays); a real seq mesh
+        # keeps the collective scan and says so once (_warn_route_once)
+        validate_executor(executor, "executor")
+        self.executor = executor or default_executor()
+        self._route_warned = False
+        self.members: list[int] = []      # sidecar slot per pool row
+        self.row_of: dict[int, int] = {}  # sidecar slot -> row
+        # per-member STREAM WATERMARK: how many of the slot's canonical
+        # stream ops the pool table already reflects. A full-stream
+        # rebuild advances every watermark to the stream head, so ops it
+        # subsumed can never dispatch again: a deferred-op batch racing
+        # a recovery rebuild cannot apply twice
+        self.applied_upto: dict[int, int] = {}
+        self._table: Optional[SegmentTable] = None
+        self.dispatch_count = 0
+
+    def _bucket(self) -> int:
+        b = 1
+        while b < max(1, len(self.members)):
+            b *= 2
+        return b
+
+    def _warn_route_once(self) -> None:
+        if self._route_warned:
+            return
+        self._route_warned = True
+        print(
+            f"fftpu: SeqShardedPool: the {self.executor} macro-step does "
+            "not decompose over a slot-sharded axis; using the "
+            f"scan-collective route on this {self.n_seq}-way seq mesh (a "
+            "docs-sharded MeshShardedPool follows the executor route — "
+            "see select_pool)", file=sys.stderr, flush=True)
+
+    def _apply(self, table: SegmentTable, arrays: dict) -> SegmentTable:
+        if self.executor in ("chunked", "egwalker") and self.n_seq == 1:
+            program = compile_chunks(arrays, k_max=CHUNK_K)
+            out = apply_window_chunked(
+                table, program_to_device(program, self.device), K=CHUNK_K,
+                steps=macro_steps(program["chunk_start"], CHUNK_K))
+        else:
+            if self.executor in ("chunked", "egwalker"):
+                self._warn_route_once()
+            out = apply_window_seq_sharded(table, OpBatch(**arrays),
+                                           self.mesh)
+        # compact after every pool dispatch: remove-heavy histories
+        # otherwise accumulate dead segments until they overflow a pool
+        # that could easily hold the live text
+        return compact(out)
+
+    def _replay_all(self, streams) -> None:
+        """Rebuild the pool table and re-replay every member's stream."""
+        if not self.members:
+            self._table = None
+            return
+        self._table = replay_chunked(
+            self._apply, make_table(self._bucket(), self.capacity,
+                                    self.device),
+            {row: streams[slot].ops for row, slot in enumerate(self.members)},
+            chunk=BucketLadder.replay_chunk(self.capacity),
+        )
+        self.applied_upto = {
+            slot: len(streams[slot].ops) for slot in self.members}
+
+    def admit(self, slots: list, streams) -> list:
+        """Admit sidecar slots; returns the slots that FAILED (past even
+        the pooled capacity) and were rolled back out."""
+        for slot in slots:
+            if slot not in self.row_of:
+                self.row_of[slot] = len(self.members)
+                self.members.append(slot)
+        self._replay_all(streams)
+        failed = self.overflowed_slots()
+        if failed:
+            for slot in failed:
+                self.remove(slot)
+            self._replay_all(streams)
+        return failed
+
+    def remove(self, slot: int) -> None:
+        """Bookkeeping only: the table still holds the removed row's data
+        and flags at the OLD indices. Callers MUST follow with rebuild()
+        before the next read or dispatch, or the other members read the
+        wrong rows and stale overflow flags evict innocent documents."""
+        if slot not in self.row_of:
+            return
+        row = self.row_of.pop(slot)
+        self.applied_upto.pop(slot, None)
+        self.members.pop(row)
+        for s2, r2 in self.row_of.items():
+            if r2 > row:
+                self.row_of[s2] = r2 - 1
+
+    def rebuild(self, streams) -> None:
+        self._replay_all(streams)
+
+    def dispatch_pending(self, streams) -> list:
+        """Apply every member's un-applied canonical-stream tail (past its
+        watermark) in one dispatch; returns the slots that overflowed the
+        pool. Tails a rebuild already subsumed are empty here, so this is
+        exactly-once after any mix of rebuilds and dispatches."""
+        if self._table is None:
+            return []
+        pending, upto = {}, {}
+        for slot, row in self.row_of.items():
+            tail = streams[slot].ops[self.applied_upto.get(slot, 0):]
+            if tail:
+                pending[row] = coalesce_noops(tail)
+                upto[slot] = len(streams[slot].ops)
+        if not pending:
+            return []
+        self.dispatch_count += 1
+        self._table = self._apply(self._table,
+                                  pack_rows(self._table.docs, pending))
+        self.applied_upto.update(upto)
+        return self.overflowed_slots()
+
+    def prewarm(self) -> float:
+        """Build the window kernel a one-shard seq pool launches on CUDA
+        (nothing to do on the CPU); returns the seconds it took."""
+        if self.mesh.device_type != "cuda":
+            return 0.0
+        from ..ops.cuda_merge import prewarm
+
+        return prewarm()
+
+    def overflowed_slots(self) -> list:
+        if self._table is None:
+            return []
+        flags = self._table.overflow.cpu().numpy()
+        return [self.members[r] for r in np.nonzero(flags)[0].tolist()
+                if r < len(self.members)]
+
+    def fetch(self) -> dict:
+        return fetch(self._table)
+
+
+def select_pool(mesh, per_doc_capacity: Optional[int] = None,
+                executor: Optional[str] = None,
+                route: Optional[str] = None,
+                max_capacity: int = 16384,
+                plane: str = "merge",
+                device: torch.device | str = "cuda"):
+    """THE route-selection point between the pool tiers: every sidecar
+    pool (merge and tree plane) is constructed here, nowhere else.
+    ``plane='tree'`` builds the tree plane's ``TreeSeqPool`` on
+    ``device`` (its per-changeset sorts do not decompose over a
+    slot-sharded axis, so the mesh is unused there and ``route`` does
+    not apply); the merge pools live on the mesh's devices.
+
+    - a mesh with a real ``seq`` axis (size > 1) -> ``SeqShardedPool``;
+    - a mesh with a sharded ``docs`` axis -> ``MeshShardedPool``;
+    - a one-shard mesh -> the tier its axis names match (a ``seq`` mesh
+      the seq pool, a ``docs`` mesh a one-shard mesh pool).
+
+    ``route='seq'|'mesh'`` (argument) or ``FFTPU_SIDECAR_POOL=seq|mesh``
+    (environment; the argument wins) overrides; an unknown value raises
+    ``ValueError``, and an override that does not fit the mesh fails in
+    the chosen pool's own validation: an emergency route change must
+    never silently not happen.
+
+    Default ``per_doc_capacity``: the seq pool multiplies the ladder top
+    by its seq-shard count; the mesh pool grants 4x the ladder top,
+    capped at 8192 (per-document capacity stays chip-local there, and
+    the op_off composite needs capacity * OPOFF_BOUND < 2**31)."""
+    if plane not in ("merge", "tree"):
+        raise ValueError(f"plane={plane!r}: expected 'merge' or 'tree'")
+    if plane == "tree":
+        from .tree_sidecar import TreeSeqPool
+
+        return TreeSeqPool(
+            mesh,
+            per_doc_capacity if per_doc_capacity is not None
+            else min(max_capacity * 4, 16384),
+            executor=executor, device=device)
+    source = "pool_route"
+    validate_executor(executor, "executor")
+    if route is None:
+        route = os.environ.get("FFTPU_SIDECAR_POOL") or None
+        source = "FFTPU_SIDECAR_POOL"
+    if route is not None and route not in ("seq", "mesh"):
+        raise ValueError(f"{source}={route!r}: expected 'seq' or 'mesh'")
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"a merge pool needs a DeviceMesh, got {mesh!r}")
+    seq_n = mesh.shape.get(SEQ_AXIS, 1)
+    doc_n = mesh.shape.get(DOC_AXIS, 1)
+    if route is None:
+        if seq_n > 1:
+            route = "seq"
+        elif doc_n > 1:
+            route = "mesh"
+        else:
+            route = "seq" if SEQ_AXIS in mesh.axis_names else "mesh"
+    if route == "mesh":
+        from ..parallel.mesh_pool import MeshShardedPool
+
+        if per_doc_capacity is None:
+            per_doc_capacity = min(max_capacity * 4, 8192)
+        return MeshShardedPool(mesh, per_doc_capacity,
+                               executor=executor or default_executor())
+    if per_doc_capacity is None:
+        per_doc_capacity = max_capacity * seq_n
+    return SeqShardedPool(mesh, per_doc_capacity, executor=executor)
+
+
 class GpuMergeSidecar:
     """Batched merge state for up to ``max_docs`` sequence channels.
 
@@ -105,24 +354,40 @@ class GpuMergeSidecar:
     the sidecar's device. ``device`` is ``"cuda"`` unless the caller
     asks for ``"cpu"`` (the tests do); with no GPU the default raises
     instead of running on the CPU.
+
+    ``seq_mesh`` (a ``DeviceMesh`` of the sidecar's device type) turns
+    the pool tier on, built by ``select_pool`` (``pool_route`` /
+    ``FFTPU_SIDECAR_POOL`` override its choice; ``pool_capacity`` its
+    per-document capacity).
     """
 
     def __init__(self, max_docs: int = 1024, capacity: int = 1024,
                  compact_every: int = 8, max_capacity: int = 16384,
-                 seq_mesh=None, executor: Optional[str] = None,
+                 seq_mesh=None, pool_capacity: Optional[int] = None,
+                 pool_route: Optional[str] = None,
+                 executor: Optional[str] = None,
                  pipeline: bool = True,
                  ladder: Optional[BucketLadder] = None,
                  device: torch.device | str = "cuda"):
         validate_executor(executor, "executor")
         self.executor = executor or default_executor()
-        if seq_mesh is not None:
-            raise NotImplementedError(
-                "seq_mesh: the pool tiers are not ported (ROADMAP A7)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "GpuMergeSidecar needs a CUDA device; pass device='cpu' "
                 "to run the plain version on the CPU")
+        # pool tier: past the ladder top, documents move to a pool on the
+        # mesh before any host eviction
+        self._pool = None
+        if seq_mesh is not None:
+            self._pool = select_pool(
+                seq_mesh, pool_capacity, executor=self.executor,
+                route=pool_route, max_capacity=max_capacity)
+            if self._pool.mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"a {self.device.type} sidecar with a pool mesh on "
+                    f"{self._pool.mesh.device_type}")
+        self.pool_admit_count = 0
         self.max_docs = max_docs
         self.capacity = capacity
         self.max_capacity = max_capacity
@@ -155,10 +420,12 @@ class GpuMergeSidecar:
         self.grow_count = 0
         self.evict_count = 0
         # host ints per sidecar: host-pack (pack + route compile) and
-        # settle (device-wait) seconds, rounds, macro-steps run, and the
-        # would-be span breaks the egwalker compiler absorbed
+        # settle (device-wait) seconds, rounds, macro-steps run, the
+        # would-be span breaks the egwalker compiler absorbed, and the
+        # seconds of pool dispatches (at settle) and pool admissions
         self.stats = {"pack_s": 0.0, "settle_s": 0.0, "rounds": 0,
-                      "macro_steps": 0, "span_splits": 0}
+                      "macro_steps": 0, "span_splits": 0,
+                      "pool_s": 0.0, "admit_s": 0.0}
 
     # ------------------------------------------------------------------
     # registration + ingest
@@ -277,7 +544,7 @@ class GpuMergeSidecar:
             return 0.0
         from ..ops.cuda_merge import prewarm
 
-        return prewarm()
+        return prewarm() + (self._pool.prewarm() if self._pool else 0.0)
 
     def _compile_program(self, arrays: dict) -> dict:
         """Host half of one dispatch: the packed arrays for the scan
@@ -337,6 +604,16 @@ class GpuMergeSidecar:
         # round: coalesce noop runs (safe: the queue is consumed whole),
         # pad the window to a ladder rung, compile the route's program
         packed = [coalesce_noops(q) for q in self._queued]
+        pool_real = 0
+        if self._pool is not None:
+            # pooled docs dispatch from their canonical-stream tails at
+            # the settle boundary (watermarked, rebuild-proof); their
+            # queued copies are counted here and left out of the window
+            for slot in list(self._pool.row_of):
+                if packed[slot]:
+                    pool_real += sum(1 for op in packed[slot]
+                                     if op["kind"] != KIND_NOOP)
+                    packed[slot] = []
         arrays = pack_rows(
             self.max_docs,
             {slot: ops for slot, ops in enumerate(packed) if ops},
@@ -370,12 +647,13 @@ class GpuMergeSidecar:
         self._unsettled = True
         self._table = self._apply_program(self._prev_table,
                                           self._last_program)
-        return real
+        return real + pool_real
 
     def _settle(self) -> None:
         """The host<->device sync boundary: read the in-flight round's
-        overflow flags and run recovery if one is set. Reads and the
-        next dispatch both funnel through here."""
+        overflow flags, run recovery if one is set, then dispatch the
+        pooled documents' stream tails. Reads and the next dispatch both
+        funnel through here."""
         if not self._unsettled:
             return
         self._unsettled = False
@@ -386,9 +664,18 @@ class GpuMergeSidecar:
             self._recover()
         self._prev_table = None
         self._last_program = None
+        if self._pool is not None and self._pool.members:
+            # the pool reads its overflow flags on the spot, hence its
+            # dispatch lives here; it advances only when a flush was in
+            # flight, so reads stay side-effect-free and ingested but
+            # never-applied ops stay invisible on both tiers
+            t0 = time.perf_counter()
+            for slot in self._pool.dispatch_pending(self._streams):
+                self._evict(slot)  # past even the pooled capacity
+            self.stats["pool_s"] += time.perf_counter() - t0
 
     # ------------------------------------------------------------------
-    # overflow recovery: grow ladder, then host eviction
+    # overflow recovery: grow ladder, then pool, then host eviction
 
     def _recover(self) -> None:
         while True:
@@ -397,6 +684,10 @@ class GpuMergeSidecar:
                 return
             if self.capacity * 2 <= self.max_capacity:
                 self._grow(self.capacity * 2)
+            elif self._pool is not None:
+                for slot in self._admit_to_pool(overflowed.tolist()):
+                    self._evict(slot)
+                return
             else:
                 for slot in overflowed.tolist():
                     self._evict(slot)
@@ -428,6 +719,24 @@ class GpuMergeSidecar:
         overflow[idx] = 0
         self._table = self._table._replace(count=count, overflow=overflow)
 
+    def _admit_to_pool(self, slots: list) -> list:
+        """Move slots to the pool tier and retire their primary rows;
+        returns the slots the pool could not hold."""
+        # already-members reappear here through the pipelined straggler
+        # window (a round packed before their admission settled
+        # re-applies their ops onto the retired primary row); their pool
+        # state is current, so they need only the row retirement again
+        fresh = [s for s in slots if s not in self._pool.row_of]
+        t0 = time.perf_counter()
+        failed = self._pool.admit(fresh, self._streams) if fresh else []
+        self.stats["admit_s"] += time.perf_counter() - t0
+        admitted = [s for s in slots if s not in failed]
+        self.pool_admit_count += len([s for s in fresh if s not in failed])
+        self._retire_rows(admitted)
+        for slot in admitted:
+            self._queued[slot].clear()  # replayed from the stream
+        return failed
+
     def _evict(self, slot: int) -> None:
         """Move one document to a host-side scalar oracle replica —
         full fidelity (arbitrary props, unbounded length), off the
@@ -439,6 +748,11 @@ class GpuMergeSidecar:
         if slot in self._host:
             return
         self.evict_count += 1
+        if self._pool is not None and slot in self._pool.row_of:
+            # remove() is bookkeeping only: rebuild here, so every
+            # eviction path leaves the other members' rows consistent
+            self._pool.remove(slot)
+            self._pool.rebuild(self._streams)
         host = MergeTreeClient(f"sidecar-host-{slot}")
         host.start_collaboration(f"sidecar-host-{slot}")
         self._host[slot] = host
@@ -454,13 +768,20 @@ class GpuMergeSidecar:
         table: read it at doc 0)."""
         return fetch(SegmentTable(*(t[slot:slot + 1] for t in self._table)))
 
+    def _read(self, slot: int) -> tuple:
+        """(host table, row) holding a device-served document."""
+        if self._pool is not None and slot in self._pool.row_of:
+            return self._pool.fetch(), self._pool.row_of[slot]
+        return self._row(slot), 0
+
     def text(self, document_id: str, datastore_id: str,
              channel_id: str) -> str:
         self._settle()
         slot = self._slots[(document_id, datastore_id, channel_id)]
         if slot in self._host:
             return self._host[slot].get_text()
-        return extract_text(self._row(slot), self._streams[slot], 0)
+        table, row = self._read(slot)
+        return extract_text(table, self._streams[slot], row)
 
     def signature(self, document_id: str, datastore_id: str,
                   channel_id: str) -> tuple:
@@ -468,10 +789,14 @@ class GpuMergeSidecar:
         slot = self._slots[(document_id, datastore_id, channel_id)]
         if slot in self._host:
             return interned_signature(self._host[slot], self._streams[slot])
-        return extract_signature(self._row(slot), self._streams[slot], 0)
+        table, row = self._read(slot)
+        return extract_signature(table, self._streams[slot], row)
 
     def host_mode_docs(self) -> int:
         return len(self._host)
+
+    def pooled_docs(self) -> int:
+        return len(self._pool.members) if self._pool else 0
 
     def overflowed(self) -> bool:
         """True only if a document is CURRENTLY wrong (should never

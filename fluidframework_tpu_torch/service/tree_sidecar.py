@@ -243,8 +243,9 @@ class TreeSidecar:
     ``default_tree_executor()``). ``device`` is ``"cuda"`` unless the
     caller asks for ``"cpu"`` (the tests do); with no GPU the default
     raises instead of running on the CPU. Any non-None ``pool_mesh``
-    turns the pooled tier on (the mesh itself is unused: the pool
-    lives on ``device``); ``pool_capacity`` defaults to
+    turns the pooled tier on, built by ``gpu_sidecar.select_pool``
+    (``plane="tree"``; the mesh itself is unused: the pool lives on
+    ``device``); ``pool_capacity`` defaults to
     ``min(4 * max_capacity, 16384)``, the reference's rule."""
 
     def __init__(self, max_docs: int = 64, capacity: int = 64,
@@ -269,12 +270,14 @@ class TreeSidecar:
         self.ladder = ladder or BucketLadder()
         self._pool: Optional[TreeSeqPool] = None
         if pool_mesh is not None:
-            self._pool = TreeSeqPool(
-                pool_mesh,
-                pool_capacity if pool_capacity is not None
-                else min(max_capacity * 4, 16384),
-                executor=self.executor, ring=ring, atoms=width,
-                ladder=self.ladder, device=self.device)
+            from .gpu_sidecar import select_pool
+
+            self._pool = select_pool(
+                pool_mesh, pool_capacity, executor=self.executor,
+                max_capacity=max_capacity, plane="tree", device=self.device)
+            self._pool.ring = ring
+            self._pool.atoms = width
+            self._pool.ladder = self.ladder
         self.pool_admit_count = 0
         self._table = make_tree_table(max_docs, capacity, self.device,
                                       ring=ring, atoms=width)

@@ -37,6 +37,15 @@ TREE_MODULES = (
     "fluidframework_tpu_torch.ops.tree_apply",
     "fluidframework_tpu_torch.service.tree_sidecar",
 )
+# the pool tiers' and sharding modules, named for the same reason
+POOL_MODULES = (
+    "fluidframework_tpu_torch.obs.heat",
+    "fluidframework_tpu_torch.ops.shard_moves",
+    "fluidframework_tpu_torch.parallel.mesh",
+    "fluidframework_tpu_torch.parallel.seq_shard",
+    "fluidframework_tpu_torch.parallel.mesh_pool",
+    "fluidframework_tpu_torch.parallel.distributed",
+)
 
 _CHILD = r"""
 import importlib, json, pkgutil, sys
@@ -62,7 +71,8 @@ def test_port_import_loads_no_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
     out = json.loads(proc.stdout)
     assert len(out["names"]) >= 20
-    assert set(ROUTE_MODULES + TREE_MODULES) <= set(out["names"])
+    assert set(ROUTE_MODULES + TREE_MODULES + POOL_MODULES) <= set(
+        out["names"])
     assert out["bad"] == []
 
 
@@ -72,7 +82,7 @@ def _sources():
 
 def test_source_scan_covers_the_route_modules():
     scanned = set(_sources())
-    for name in ROUTE_MODULES + TREE_MODULES:
+    for name in ROUTE_MODULES + TREE_MODULES + POOL_MODULES:
         path = REPO.joinpath(*name.split(".")).with_suffix(".py")
         assert path in scanned, name
 
@@ -128,6 +138,23 @@ def test_tree_plane_without_gpu_raises():
         TreeSidecar()
     with pytest.raises(RuntimeError, match="CUDA"):
         TreeSeqPool(None, 64)
+
+
+def test_pool_mesh_without_gpu_raises():
+    """A mesh never lands on the CPU unless the caller names it."""
+    from fluidframework_tpu_torch.parallel import (
+        make_global_mesh, make_mesh, make_seq_mesh,
+    )
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for make in (make_mesh, make_seq_mesh, make_global_mesh):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh([torch.device("cuda", 0)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GpuMergeSidecar(seq_mesh=make_mesh([torch.device("cpu")]))
 
 
 def test_cpu_apply_never_touches_the_build(monkeypatch):

@@ -218,10 +218,11 @@ def test_duplicate_delivery_is_dropped():
 
 def test_unported_routes_raise():
     """The chunked and egwalker routes construct, a route typo is loud,
-    and the pool tier still waits for ROADMAP A7."""
+    and a pool mesh that is not a ``DeviceMesh`` raises instead of
+    being ignored."""
     for route in ("chunked", "egwalker"):
         assert GpuMergeSidecar(device="cpu", executor=route).executor == route
     with pytest.raises(ValueError, match="executor='egwalkr'"):
         GpuMergeSidecar(device="cpu", executor="egwalkr")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         GpuMergeSidecar(device="cpu", seq_mesh=object())
