@@ -20,8 +20,15 @@ documents of 1024 admitted to a one-shard ``MeshShardedPool`` at
 capacity 8192 through the sidecar; bench config10's mesh pool on 1, 2
 and 4 shards and its viral-member migration; the sequence-sharded
 window at 64 x 4096 x 64 on 2 and 4 shards against the kernel; a
-2-shard ``SeqShardedPool`` serving 4 long documents), and times the
-kernel beside its plain version.
+2-shard ``SeqShardedPool`` serving 4 long documents), drives the
+SharedMatrix plane at bench config3's full width (64 matrices of 10250
+rows x 16 cols: the axes as one 128 x 1024 window of the kernel, the
+cells as one LWW sort and scatter) against the host replay, a host LWW
+and a host materialization of every matrix, runs the main path and
+config14's mixed corpus on both macro-step routes with the donated
+double buffer on and off, walks ``prewarm``'s capacity x window ladder
+at the main path's shape, and times the kernel beside its plain
+version.
 
 The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
@@ -36,7 +43,13 @@ check; the "tree programs" lines time one window step's ring rebase and
 each route's forest apply. Each "pool:" line holds one pool cell and
 its mesh's device list (a one-card machine repeats ``cuda:0``: shards
 on one card, not a scaling figure); the "pool programs" lines time the
-doc-sharded dispatch, the row moves and the window floor. The times
+doc-sharded dispatch, the row moves and the window floor. The
+"matrix:" lines hold the pack, end-to-end and check results and the
+times of the axis window and the cells' sort and scatter; each
+"donation:" line one run with donation on or off (wall, device time,
+peak memory, allocator requests per round) and the last one a donated
+window's and a copy's times; the "prewarm:" line the walk's seconds and
+shapes and the first round after it beside the steady ones. The times
 lines cover the window
 rungs 16 / 32 / 64 at the main shape and the capacities 4096 and 8192,
 with the NOOP share of each timed batch. Every phase runs on every
@@ -225,24 +238,41 @@ def _check_docs(sidecar, docs_streams) -> None:
             raise AssertionError(f"{doc}: signature differs from the oracle")
 
 
-def phase_main(seed: int) -> dict:
-    from fluidframework_tpu_torch.ops import cuda_merge
-    from fluidframework_tpu_torch.service import GpuMergeSidecar
+def config2_corpus(seed: int) -> list:
+    """The main path's 16 distinct streams (4 clients x 220 steps)."""
     from fluidframework_tpu_torch.testing import FuzzConfig, record_op_stream
 
-    n_distinct = 16
-    raw = []
-    for i in range(n_distinct):
-        _, stream = record_op_stream(FuzzConfig(
-            n_clients=4, n_steps=220, seed=seed * 1000 + i))
-        raw.append(stream)
+    return [record_op_stream(FuzzConfig(
+        n_clients=4, n_steps=220, seed=seed * 1000 + i))[1]
+        for i in range(16)]
+
+
+def _alloc_count() -> int:
+    """The caching allocator's allocation requests so far."""
+    return torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+
+
+def drive_config2(raw: list, donate=None) -> dict:
+    """bench config2 at full width through ``GpuMergeSidecar`` on the
+    scan route: every document a tile of ``raw``, rounds of 16 / 32 / 48
+    messages. Returns the sidecar and the run's numbers: wall, ingest,
+    rounds, real ops, window-kernel launches, the device trace, peak
+    device memory and the allocator's allocation requests."""
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.service import GpuMergeSidecar
+
+    n_distinct = len(raw)
     wrapped = [_wrap(s) for s in raw]
     sidecar = GpuMergeSidecar(max_docs=MAIN_DOCS, capacity=MAIN_CAPACITY,
-                              executor="scan", device="cuda")
+                              executor="scan", donate=donate, device="cuda")
     doc_ids = [f"doc-{d}" for d in range(MAIN_DOCS)]
     for doc in doc_ids:
         sidecar.track(doc, "d", "s")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    allocs = _alloc_count()
     cuda_merge.LAUNCHES = 0
     torch.cuda.synchronize()
     # device activity only: the trace gives the device-busy time of the
@@ -267,8 +297,31 @@ def phase_main(seed: int) -> dict:
         sidecar.sync()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = cuda_merge.LAUNCHES
-    busy = _device_busy_ms(prof)
+    return {"sidecar": sidecar, "doc_ids": doc_ids, "wall": wall,
+            "ingest_s": ingest_s, "rounds": rounds, "real": real,
+            "launches": cuda_merge.LAUNCHES, "busy": _device_busy_ms(prof),
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "allocs": _alloc_count() - allocs}
+
+
+def _served(sidecar, doc_ids: list) -> dict:
+    """The live table (numpy) and each listed document's text and
+    signature."""
+    from fluidframework_tpu_torch.ops.host_bridge import fetch
+
+    return {"table": fetch(sidecar._table),
+            "docs": [(sidecar.text(d, "d", "s"),
+                      sidecar.signature(d, "d", "s")) for d in doc_ids]}
+
+
+def phase_main(seed: int) -> dict:
+    raw = config2_corpus(seed)
+    n_distinct = len(raw)
+    run = drive_config2(raw)
+    sidecar, doc_ids = run.pop("sidecar"), run["doc_ids"]
+    wall, ingest_s, rounds, real = (run["wall"], run["ingest_s"],
+                                    run["rounds"], run["real"])
+    launches, busy = run["launches"], run["busy"]
 
     _check_docs(sidecar, [(doc_ids[i], raw[i]) for i in range(n_distinct)])
     if sidecar.host_mode_docs() or sidecar.overflowed():
@@ -280,7 +333,9 @@ def phase_main(seed: int) -> dict:
         f"(ingest {ingest_s:.3f} s, pack {sidecar.stats['pack_s']:.3f} s, "
         f"settle {sidecar.stats['settle_s']:.3f} s), "
         f"{real / wall:.1f} ops/s, launches {launches}, grows "
-        f"{sidecar.grow_count}; {n_distinct} streams == oracle")
+        f"{sidecar.grow_count}, donate {sidecar.donate}; peak device "
+        f"memory {run['peak_mib']:.1f} MiB, allocator requests "
+        f"{run['allocs']}; {n_distinct} streams == oracle")
     if busy["total"] > 0:
         log(f"main path device trace: busy {busy['total']:.3f} ms of wall "
             f"{wall * 1e3:.3f} ms, idle share "
@@ -290,7 +345,8 @@ def phase_main(seed: int) -> dict:
         log("main path device trace: no device time recorded "
             "(idle share not measured)")
     return {"launches": launches, "rounds": rounds, "real_ops": real,
-            "wall_s": wall}
+            "wall_s": wall, "raw": raw, "run": run,
+            "served": _served(sidecar, doc_ids[:n_distinct])}
 
 
 def _device_busy_ms(prof) -> dict:
@@ -354,10 +410,10 @@ def _guard_device_half(sidecar, attr: str = "_apply_program") -> dict:
     seen = {"calls": 0}
     inner = getattr(sidecar, attr)
 
-    def guarded(table, program):
+    def guarded(table, program, *donated):
         torch.cuda.set_sync_debug_mode("error")
         try:
-            return inner(table, program)
+            return inner(table, program, *donated)
         finally:
             torch.cuda.set_sync_debug_mode("default")
             seen["calls"] += 1
@@ -377,8 +433,8 @@ def _hold_suffix_dispatch(sidecar) -> dict:
     compile_inner = sidecar._compile_program
     apply_inner = sidecar._apply_program
 
-    def compile_hook(arrays):
-        program = compile_inner(arrays)
+    def compile_hook(arrays, base_head):
+        program = compile_inner(arrays, base_head)
         suffix = program.get("suffix")
         real = 0 if suffix is None else int(_real(suffix["kind"]).sum())
         pending["real"] = real
@@ -386,8 +442,8 @@ def _hold_suffix_dispatch(sidecar) -> dict:
             2 if program["prefix"] is not None else 1)
         return program
 
-    def apply_hook(table, program):
-        out = apply_inner(table, program)
+    def apply_hook(table, program, dead=None):
+        out = apply_inner(table, program, dead)
         if pending["rank"] > held["rank"]:
             held.update(pending, table=table, program=program, out=out)
         pending["rank"] = 0  # a grow's re-apply is the same dispatch
@@ -428,11 +484,12 @@ def _check_suffix(held: dict, what: str) -> str:
             + "; all fields bit-exact, and the dispatch's own output)")
 
 
-def run_route(route: str, raw: list) -> dict:
-    """One corpus through ``GpuMergeSidecar(executor=route)``: every
-    document gets a stream (16 distinct, tiled), fed through ``ingest``
-    8 messages per document per round, ``apply`` after each round.
-    Returns the sidecar, its table (numpy) and the run's numbers."""
+def run_route(route: str, raw: list, donate=None) -> dict:
+    """One corpus through ``GpuMergeSidecar(executor=route,
+    donate=donate)``: every document gets a stream (16 distinct,
+    tiled), fed through ``ingest`` 8 messages per document per round,
+    ``apply`` after each round. Returns the sidecar, its table (numpy)
+    and the run's numbers."""
     from fluidframework_tpu_torch.ops import cuda_merge
     from fluidframework_tpu_torch.ops.host_bridge import fetch
     from fluidframework_tpu_torch.service import GpuMergeSidecar
@@ -440,15 +497,19 @@ def run_route(route: str, raw: list) -> dict:
     wrapped = [_wrap(s) for s in raw]
     sidecar = GpuMergeSidecar(
         max_docs=ROUTES_DOCS, capacity=ROUTES_CAPACITY,
-        max_capacity=ROUTES_MAX_CAPACITY, executor=route, device="cuda")
+        max_capacity=ROUTES_MAX_CAPACITY, executor=route, donate=donate,
+        device="cuda")
     doc_ids = [f"doc-{d}" for d in range(ROUTES_DOCS)]
     for doc in doc_ids:
         sidecar.track(doc, "d", "s")
     guard = _guard_device_half(sidecar)
-    held = _hold_suffix_dispatch(sidecar) if route == "egwalker" else None
+    # a donated run writes later rounds into the held input: hold none
+    held = (_hold_suffix_dispatch(sidecar)
+            if route == "egwalker" and not sidecar.donate else None)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    allocs = _alloc_count()
     cuda_merge.LAUNCHES = 0
     torch.cuda.synchronize()
     with torch.profiler.profile(
@@ -473,6 +534,7 @@ def run_route(route: str, raw: list) -> dict:
         "busy": _device_busy_ms(prof), "rounds": rounds, "real": real,
         "wall": wall, "ingest_s": ingest_s, "guarded": guard["calls"],
         "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+        "allocs": _alloc_count() - allocs,
         "table": fetch(sidecar._table), "suffix_check": None,
     }
     if held is not None and held["rank"]:
@@ -480,14 +542,19 @@ def run_route(route: str, raw: list) -> dict:
     return rec
 
 
-def phase_routes() -> None:
+DONATION_CORPUS = "mixed"  # the config14 corpus the donation phase reruns
+
+
+def phase_routes() -> dict:
     """Each config14 corpus through the three routes: every distinct
     stream equals the oracle, the macro-step routes' live state equals
     the scan route's, no document leaves the device path unless the
     scan's did, and the egwalker suffix launches the window kernel on
-    the corpora that have one."""
+    the corpora that have one. Returns the macro-step routes' runs of
+    ``DONATION_CORPUS``, the donation phase's runs with donation off."""
     from fluidframework_tpu_torch.testing.windows import live_difference
 
+    undonated = {}
     for kind in ("sequential", "remove_heavy", "concurrent", "mixed"):
         raw = route_corpus(kind)
         scan = None
@@ -538,9 +605,13 @@ def phase_routes() -> None:
                 + ("" if route == "scan" else "; live state == scan")
                 + ("" if route != "egwalker" else
                    f"; {rec['suffix_check'] or 'no suffix with real ops'}"))
+            if kind == DONATION_CORPUS and route != "scan":
+                rec["served"] = _served(sidecar, rec["doc_ids"][:len(raw)])
+                undonated[route] = rec
             del sidecar, rec
         if kind == "sequential":
             time_table_programs(scan["table"])
+    return undonated
 
 
 def time_table_programs(arrays: dict) -> None:
@@ -567,7 +638,7 @@ def time_table_programs(arrays: dict) -> None:
 # ----------------------------------------------------------------------
 # recovery: grow ladder and host eviction at a small size
 
-def phase_recovery(seed: int) -> None:
+def phase_recovery(seed: int, donate: bool = False) -> None:
     from fluidframework_tpu_torch.service import GpuMergeSidecar
     from fluidframework_tpu_torch.testing import (
         FuzzConfig, MockCollabSession, record_op_stream,
@@ -588,7 +659,7 @@ def phase_recovery(seed: int) -> None:
     streams.append(props_log)
 
     sidecar = GpuMergeSidecar(max_docs=4, capacity=16, max_capacity=64,
-                              executor="scan", device="cuda")
+                              executor="scan", donate=donate, device="cuda")
     docs = [f"r-{i}" for i in range(len(streams))]
     wrapped = [_wrap(s) for s in streams]
     for doc in docs:
@@ -605,7 +676,7 @@ def phase_recovery(seed: int) -> None:
         raise AssertionError(
             f"recovery did not grow and evict (grows {sidecar.grow_count}, "
             f"evictions {sidecar.evict_count})")
-    log(f"recovery: capacity 16 -> {sidecar.capacity}, grows "
+    log(f"recovery: donate {donate}: capacity 16 -> {sidecar.capacity}, grows "
         f"{sidecar.grow_count}, evictions {sidecar.evict_count} (one at "
         f"ingest: 5 property keys), host docs {sidecar.host_mode_docs()}; "
         f"all {len(docs)} docs == oracle")
@@ -1446,6 +1517,423 @@ def phase_pool(seed: int) -> dict:
 
 
 # ----------------------------------------------------------------------
+# matrix plane: bench config3 at full width
+
+def _host_cells(keys: np.ndarray, space: int) -> np.ndarray:
+    """The cells' LWW grid on the host: for every matrix and written
+    cell the largest window index (the last write), -1 elsewhere."""
+    M, N = keys.shape
+    grid = np.full((M, space), -1, np.int64)
+    valid = keys >= 0
+    rows = np.broadcast_to(np.arange(M)[:, None], keys.shape)[valid]
+    idx = np.broadcast_to(np.arange(N)[None, :], keys.shape)[valid]
+    np.maximum.at(grid, (rows, keys[valid]), idx)
+    return grid
+
+
+def _host_matrix(ms, rows: list, cols: list) -> list:
+    """One matrix materialized on the host: the axes' handle orders and
+    a dict LWW of the cell writes in sequenced order."""
+    cells = {}
+    for rh, ch, v in zip(ms.cell_rows, ms.cell_cols, ms.cell_vals):
+        cells[(rh, ch)] = v
+    return [[cells.get((rh, ch)) for ch in cols] for rh in rows]
+
+
+def phase_matrix() -> dict:
+    """SharedMatrix at bench config3's full width: the axes of 64
+    matrices as one 128-document window (B1), the cells as one LWW sort
+    and scatter; held against the plain window, the host replay of
+    every axis, a host LWW scatter and a host materialization of every
+    matrix."""
+    from fluidframework_tpu_torch.convert import batch_from_numpy
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.ops.host_bridge import fetch
+    from fluidframework_tpu_torch.ops.host_replay import replay_encoded
+    from fluidframework_tpu_torch.ops.matrix_bridge import (
+        _visible_handles, dispatch_matrix_batch, extract_matrix,
+        pack_matrix_batch,
+    )
+    from fluidframework_tpu_torch.ops.matrix_cells import (
+        CellPack, apply_cells_kernel,
+    )
+    from fluidframework_tpu_torch.ops.merge_kernel import apply_window
+    from fluidframework_tpu_torch.ops.segment_table import make_table
+    from fluidframework_tpu_torch.testing import record_matrix_streams
+
+    t0 = time.perf_counter()
+    cfg, streams = record_matrix_streams("full")
+    record_s = time.perf_counter() - t0
+    messages = cfg.matrices * (cfg.row_runs + cfg.cols + cfg.removes
+                               + cfg.cells)
+    op_count = sum(ms.op_count for ms in streams)
+    space = cfg.rows * cfg.cols
+    log(f"matrix: config3 full: {cfg.matrices} matrices x {cfg.rows} rows "
+        f"({cfg.row_runs} runs of {cfg.run_len}) x {cfg.cols} cols, "
+        f"{cfg.cells} cell writes and {cfg.removes} row removes each: "
+        f"{messages} sequenced messages ({op_count} axis and cell ops); "
+        f"axis table {2 * cfg.matrices} x {cfg.capacity}, cell grid "
+        f"{cfg.matrices} x {cfg.rows} x {cfg.cols} int32 "
+        f"({cfg.matrices * space * 4 / 1e6:.1f} MB); streams recorded in "
+        f"{record_s:.3f} s (host)")
+
+    # pack -> dispatch -> cells -> sync, three times
+    gc.collect()
+    cuda_merge.LAUNCHES = 0
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        batch = pack_matrix_batch(streams)
+        cells = CellPack(cfg.rows, cfg.cols, device="cuda")
+        cells.pack(streams)
+        packed = time.perf_counter()
+        table = dispatch_matrix_batch(batch, cfg.matrices, cfg.capacity,
+                                      device="cuda")
+        grid = cells.apply()
+        torch.cuda.synchronize()
+        runs.append((packed - t0, time.perf_counter() - t0))
+    launches = cuda_merge.LAUNCHES
+    if launches < 1:
+        raise AssertionError("the matrix axes never launched merge_window")
+    e2e = statistics.median(r[1] for r in runs)
+    log(f"matrix: pack {[round(r[0], 3) for r in runs]} s (axis batch and "
+        f"cell keys, host); end to end pack -> dispatch -> cells -> sync "
+        f"{[round(r[1], 3) for r in runs]} s, median {e2e:.3f} s: "
+        f"{cfg.matrices / e2e:.1f} matrices/s, {messages / e2e:.1f} "
+        f"sequenced messages/s ({op_count / e2e:.1f} axis and cell ops/s); "
+        f"merge_window launches {launches} in {len(runs)} runs")
+
+    # the axes: B1 == plain on the card, every field
+    axes = batch_from_numpy(batch, "cuda")
+    D, W = axes.kind.shape
+    empty = make_table(D, cfg.capacity, "cuda")
+    where = f"matrix axes D={D} C={cfg.capacity} W={W}"
+    want, err = _check_window(empty, axes, where)
+    bad = [f for f, x, y in zip(want._fields, table, want)
+           if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"dispatch output != plain at {where}: fields "
+                             f"{bad}; " + _first_difference(table, want))
+    np_table = fetch(table)
+    if np_table["overflow"].any():
+        raise AssertionError("config3 axis capacity overflow")
+
+    # every axis against the host replay
+    t0 = time.perf_counter()
+    host_axes = [
+        (_visible_handles(replay_encoded(ms.rows.ops).as_table(), 0,
+                          ms.row_allocs),
+         _visible_handles(replay_encoded(ms.cols.ops).as_table(), 0,
+                          ms.col_allocs))
+        for ms in streams]
+    replay_s = time.perf_counter() - t0
+    for m, (ms, (rows, cols)) in enumerate(zip(streams, host_axes)):
+        if _visible_handles(np_table, 2 * m, ms.row_allocs) != rows:
+            raise AssertionError(f"matrix {m}: row axis != host replay")
+        if _visible_handles(np_table, 2 * m + 1, ms.col_allocs) != cols:
+            raise AssertionError(f"matrix {m}: col axis != host replay")
+
+    # every grid against a host LWW scatter, and every written cell's
+    # value against a dict LWW
+    got_grid = grid.cpu().numpy().reshape(cfg.matrices, space)
+    want_grid = _host_cells(cells.keys, space)
+    diff = np.argwhere(got_grid != want_grid)
+    if diff.size:
+        m, k = (int(i) for i in diff[0])
+        raise AssertionError(
+            f"cell grid != host LWW at matrix {m} cell {k}: device "
+            f"{got_grid[m, k]}, host {want_grid[m, k]} ({len(diff)} differ)")
+    grid_np = got_grid.reshape(cfg.matrices, cfg.rows, cfg.cols)
+    for m, ms in enumerate(streams):
+        lww = {}
+        for rh, ch, v in zip(ms.cell_rows, ms.cell_cols, ms.cell_vals):
+            lww[(rh, ch)] = v
+        for (rh, ch), v in lww.items():
+            if cells.lookup(grid_np, m, rh, ch) != v:
+                raise AssertionError(f"matrix {m}: cell {rh},{ch} != LWW")
+
+    # every matrix materialized against the host
+    t0 = time.perf_counter()
+    extracted = [extract_matrix(np_table, ms, m)
+                 for m, ms in enumerate(streams)]
+    extract_s = time.perf_counter() - t0
+    for m, (ms, (rows, cols)) in enumerate(zip(streams, host_axes)):
+        if extracted[m] != _host_matrix(ms, rows, cols):
+            raise AssertionError(f"matrix {m}: extract_matrix != host")
+    log(f"matrix: checks: kernel == plain on the axis batch D={D} "
+        f"C={cfg.capacity} W={W} (all fields bit-exact, and the dispatch's "
+        f"own output); all {cfg.matrices} matrices' row and col axes == "
+        f"host_replay through _visible_handles (replay {replay_s:.3f} s, "
+        f"host); every grid == the host LWW scatter "
+        f"({int((want_grid >= 0).sum())} written cells, -1 elsewhere) and "
+        f"every written cell's value == the dict LWW; extract_matrix of "
+        f"every matrix ({sum(len(h[0]) for h in host_axes)} live rows in "
+        f"all) == the host materialization; extract {extract_s:.3f} s for "
+        f"{cfg.matrices} matrices (host)")
+
+    # times: B1 on the axis batch, the cells' sort and scatter
+    apply_window(empty, axes)
+    b1 = _time_ms(lambda: apply_window(empty, axes), 5, 10)
+    keys = torch.from_numpy(cells.keys).to("cuda")
+    cells_ms, cells_dev, cells_events = _program_times(
+        lambda: apply_cells_kernel(keys, cfg.rows, cfg.cols))
+    floor_ms = ((keys.numel() + cfg.matrices * space) * 4 / HBM_BYTES_PER_S
+                * 1e3)
+    log(f"matrix: B1 on the axis batch D={D} C={cfg.capacity} W={W}: median "
+        f"{statistics.median(b1):.4f} ms per launch (5 runs of 10 "
+        f"back-to-back launches: {[round(t, 4) for t in b1]}), NOOP share "
+        f"{_noop_share(axes):.4f}; apply_cells_kernel keys "
+        f"{list(keys.shape)} -> grid {cfg.matrices} x {cfg.rows} x "
+        f"{cfg.cols}: CUDA events median {cells_ms:.4f} ms per call, device "
+        f"{cells_dev:.4f} ms and {cells_events:.1f} device events per call "
+        f"(trace of 10 calls); bytes floor (keys read once, grid written "
+        f"once) {floor_ms:.4f} ms")
+    return {"launches": launches, "max_abs_err": err}
+
+
+# ----------------------------------------------------------------------
+# donation: the double buffer on and off
+
+TWINS = ("apply_window_pingpong", "apply_window_chunked_pingpong",
+         "apply_window_egwalker_pingpong")
+
+
+def _storage(table) -> list:
+    return [t.untyped_storage().data_ptr() for t in table]
+
+
+def _watch_twins() -> dict:
+    """Wrap the sidecar's donating twins: a call given a donated table
+    must return a table on that table's storage, and the donated table
+    must share none with the live input. Returns the counter of donated
+    calls and the originals (``_unwatch_twins`` puts them back)."""
+    from fluidframework_tpu_torch.service import gpu_sidecar
+
+    seen = {"donated": 0, "inner": {}}
+    for name in TWINS:
+        inner = getattr(gpu_sidecar, name)
+        seen["inner"][name] = inner
+
+        def watched(dead, table, *args, _inner=inner, _name=name, **kw):
+            if dead is not None and not set(_storage(dead)).isdisjoint(
+                    _storage(table)):
+                raise AssertionError(f"{_name}: the donated table aliases "
+                                     "the live input")
+            out = _inner(dead, table, *args, **kw)
+            if dead is not None:
+                if _storage(out) != _storage(dead):
+                    raise AssertionError(f"{_name}: the output is not in "
+                                         "the donated table's storage")
+                seen["donated"] += 1
+            return out
+
+        setattr(gpu_sidecar, name, watched)
+    return seen
+
+
+def _unwatch_twins(seen: dict) -> None:
+    from fluidframework_tpu_torch.service import gpu_sidecar
+
+    for name, inner in seen["inner"].items():
+        setattr(gpu_sidecar, name, inner)
+
+
+def _same_served(a: dict, b: dict, what: str) -> None:
+    bad = [f for f in a["table"]
+           if not np.array_equal(a["table"][f], b["table"][f])]
+    if bad:
+        raise AssertionError(f"{what}: live tables differ in {bad}")
+    for i, (x, y) in enumerate(zip(a["docs"], b["docs"])):
+        if x != y:
+            raise AssertionError(f"{what}: stream {i} text or signature "
+                                 "differs")
+
+
+def _donation_line(what: str, donate: bool, rec: dict, donated: int) -> str:
+    busy = rec["busy"]
+    return (f"donation: {what} donate {donate}: {rec['rounds']} rounds, wall "
+            f"{rec['wall'] / rec['rounds'] * 1e3:.3f} ms per round (ingest "
+            f"{rec['ingest_s'] / rec['rounds'] * 1e3:.3f} of it), device "
+            f"{busy['total'] / rec['rounds']:.3f} ms and "
+            f"{busy['events'] / rec['rounds']:.1f} events per round (trace), "
+            f"peak device memory {rec['peak_mib']:.1f} MiB, allocator "
+            f"requests {rec['allocs']} ({rec['allocs'] / rec['rounds']:.1f} "
+            f"per round), donated dispatches {donated}, merge_window "
+            f"launches {rec['launches']}")
+
+
+def phase_donation(seed: int, main_rec: dict, undonated: dict) -> dict:
+    """The main path (config2-full, scan) and config14's mixed corpus on
+    each macro-step route with donation on, against their runs with
+    donation off (the main phase's and the routes phase's,
+    ``undonated``): equal live tables, texts and signatures, every
+    donated output on the retired table's storage and none aliasing its
+    live input; then the recovery phase's grow with donation on, and
+    what a donated dispatch costs on the card."""
+    from fluidframework_tpu_torch.ops.merge_kernel import (
+        apply_window, apply_window_pingpong,
+    )
+    from fluidframework_tpu_torch.ops.segment_table import (
+        copy_into, make_table,
+    )
+    from fluidframework_tpu_torch.testing import windows
+
+    seen = _watch_twins()
+    try:
+        raw = main_rec["raw"]
+        run = drive_config2(raw, donate=True)
+        sidecar = run.pop("sidecar")
+        _same_served(main_rec["served"],
+                     _served(sidecar, run["doc_ids"][:len(raw)]),
+                     "config2-full scan")
+        donated = seen["donated"]
+        if donated < 1:
+            raise AssertionError("config2-full: no dispatch was donated")
+        launches = run["launches"]
+        del sidecar
+        log(_donation_line("config2-full scan", False, main_rec["run"], 0))
+        log(_donation_line("config2-full scan", True, run, donated)
+            + f"; live table, {len(raw)} streams' text and signature == "
+            "donate off")
+        corpus = route_corpus(DONATION_CORPUS)
+        for route in ("chunked", "egwalker"):
+            before = seen["donated"]
+            rec = run_route(route, corpus, donate=True)
+            sidecar = rec.pop("sidecar")
+            _check_docs(sidecar, [(rec["doc_ids"][i], corpus[i])
+                                  for i in range(len(corpus))])
+            _same_served(undonated[route]["served"],
+                         _served(sidecar, rec["doc_ids"][:len(corpus)]),
+                         f"config14 {DONATION_CORPUS} {route}")
+            del sidecar
+            donated = seen["donated"] - before
+            if donated < 1:
+                raise AssertionError(f"{route}: no dispatch was donated")
+            what = f"config14 {DONATION_CORPUS} {route}"
+            log(_donation_line(what, False, undonated[route], 0)
+                + " (the routes phase's run)")
+            log(_donation_line(what, True, rec, donated)
+                + f"; live table, {len(corpus)} streams' text and "
+                "signature == donate off, == oracle")
+            launches += rec["launches"]
+        phase_recovery(seed, donate=True)
+    finally:
+        _unwatch_twins(seen)
+
+    # a donated window against a fresh output, in turns, and the copy a
+    # macro-step twin adds per round
+    rng = np.random.default_rng(seed + 2)
+    table = windows.random_table(rng, MAIN_DOCS, MAIN_CAPACITY, "cuda")
+    batch = windows.random_batch(rng, table, 64, "cuda")
+    dead = make_table(MAIN_DOCS, MAIN_CAPACITY, "cuda")
+    calls = {"fresh": lambda: apply_window(table, batch),
+             "donated": lambda: apply_window_pingpong(dead, table, batch)}
+    want = calls["fresh"]()
+    got = calls["donated"]()
+    torch.cuda.synchronize()
+    if any(not torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError("the donated window != the fresh one")
+    times = {"fresh": [], "donated": []}
+    for name in ("fresh", "donated", "donated", "fresh"):
+        times[name] += _time_ms(calls[name], 3, 10)
+    parts = [f"B1 at D={MAIN_DOCS} C={MAIN_CAPACITY} W=64 into a fresh "
+             f"table median {statistics.median(times['fresh']):.4f} ms, "
+             f"into the retired one (apply_window_pingpong) "
+             f"{statistics.median(times['donated']):.4f} ms per launch "
+             "(in turns fresh, donated, donated, fresh; 3 runs of 10 each)"]
+    for docs, cap in ((ROUTES_DOCS, ROUTES_CAPACITY),
+                      (MAIN_DOCS, MAIN_CAPACITY)):
+        src = make_table(docs, cap, "cuda")
+        dst = make_table(docs, cap, "cuda")
+        ms = _time_ms(lambda: copy_into(dst, src), 5, 10)
+        nbytes = 2 * sum(t.numel() for t in src) * 4
+        parts.append(f"copy_into at D={docs} C={cap} median "
+                     f"{statistics.median(ms):.4f} ms ({nbytes} bytes moved, "
+                     f"floor {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    log("donation: " + "; ".join(parts))
+    return {"launches": launches}
+
+
+# ----------------------------------------------------------------------
+# prewarm: the ladder walk, then traffic
+
+PREWARM_MAX_CAPACITY = 8192  # the capacity ceiling (ROADMAP section C)
+PREWARM_ROUNDS, PREWARM_ROUND = 6, 30  # within every 184+ stream
+
+
+def phase_prewarm(raw: list) -> dict:
+    """A sidecar at the main path's shape whose ladder tops at 8192:
+    ``prewarm`` walks every capacity rung x window bucket (counted at
+    the device half) and leaves the live table alone; then rounds of
+    the main path's traffic, the first after the walk beside the steady
+    ones, every stream's prefix == the oracle."""
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.ops.bucket_ladder import BucketLadder
+    from fluidframework_tpu_torch.service import GpuMergeSidecar
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    sidecar = GpuMergeSidecar(
+        max_docs=MAIN_DOCS, capacity=MAIN_CAPACITY,
+        max_capacity=PREWARM_MAX_CAPACITY, executor="scan", device="cuda")
+    live = sidecar._table
+    walked = []
+    inner = sidecar._apply_program
+
+    def hook(table, program, dead=None):
+        walked.append((table.capacity, program["scan"].kind.shape[-1]))
+        return inner(table, program, dead)
+
+    sidecar._apply_program = hook
+    seconds = sidecar.prewarm()
+    sidecar._apply_program = inner
+    shapes = [(rung, bucket) for rung in BucketLadder.capacity_rungs(
+                  MAIN_CAPACITY, PREWARM_MAX_CAPACITY)
+              for bucket in sidecar.ladder.window_buckets()]
+    if walked != shapes:
+        raise AssertionError(f"prewarm walked {walked}, the ladder is "
+                             f"{shapes}")
+    if sidecar._table is not live or any(t.any() for t in (
+            live.count, live.length, live.overflow)):
+        raise AssertionError("prewarm touched the live table")
+
+    wrapped = [_wrap(s) for s in raw]
+    doc_ids = [f"doc-{d}" for d in range(MAIN_DOCS)]
+    for doc in doc_ids:
+        sidecar.track(doc, "d", "s")
+    cuda_merge.LAUNCHES = 0
+    walls = []
+    for r in range(PREWARM_ROUNDS):
+        lo, hi = r * PREWARM_ROUND, (r + 1) * PREWARM_ROUND
+        for d, doc in enumerate(doc_ids):
+            for msg in wrapped[d % len(raw)][lo:hi]:
+                sidecar.ingest(doc, msg)
+        t0 = time.perf_counter()
+        sidecar.apply()
+        sidecar.sync()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = cuda_merge.LAUNCHES
+    if launches < 1:
+        raise AssertionError("the prewarmed sidecar never launched "
+                             "merge_window")
+    n = PREWARM_ROUNDS * PREWARM_ROUND
+    _check_docs(sidecar, [(doc_ids[i], raw[i][:n]) for i in range(len(raw))])
+    rungs = len({c for c, _ in shapes})
+    log(f"prewarm: route {sidecar.executor}, {MAIN_DOCS} docs, capacity "
+        f"{MAIN_CAPACITY} -> max {PREWARM_MAX_CAPACITY}: {seconds:.3f} s for "
+        f"{rungs} rungs x {len(shapes) // rungs} buckets = {len(shapes)} "
+        f"shapes walked {shapes}, live table untouched; then "
+        f"{PREWARM_ROUNDS} rounds of {PREWARM_ROUND} messages per document: "
+        f"first round {walls[0] * 1e3:.3f} ms (apply + sync), median "
+        f"steady round {statistics.median(walls[1:]) * 1e3:.3f} ms (rounds "
+        f"{[round(w * 1e3, 3) for w in walls]} ms), merge_window launches "
+        f"{launches}; {len(raw)} streams' first {n} messages == oracle")
+    return {"launches": launches}
+
+
+# ----------------------------------------------------------------------
 # times at the main path's shape
 
 def step_ops_per_slot() -> int:
@@ -1649,25 +2137,52 @@ def main() -> int:
                 f"{where}, {4 * k['q']} slots per thread): "
                 f"{k['registers']} registers, spill stores "
                 f"{k['spill_stores']} B, spill loads {k['spill_loads']} B")
+        walls = [("start", time.perf_counter())]
+
+        def mark(name):
+            walls.append((name, time.perf_counter()))
+
         worst = phase_kernel(args.seed)
+        mark("kernel")
         main_rec = phase_main(args.seed)
-        phase_routes()
+        mark("main")
+        undonated = phase_routes()
+        mark("routes")
         phase_recovery(args.seed)
+        mark("recovery")
         phase_tree()
+        mark("tree")
         pool_rec = phase_pool(args.seed)
+        mark("pool")
+        matrix_rec = phase_matrix()
+        mark("matrix")
+        donation_rec = phase_donation(args.seed, main_rec, undonated)
+        mark("donation")
+        prewarm_rec = phase_prewarm(main_rec["raw"])
+        mark("prewarm")
         time_rec = phase_time(args.seed)
+        mark("times")
+        log("phase walls: " + ", ".join(
+            f"{name} {t - walls[i][1]:.3f} s"
+            for i, (name, t) in enumerate(walls[1:])))
         worst = max(worst, time_rec.pop("max_abs_err"),
-                    pool_rec["max_abs_err"])
+                    pool_rec["max_abs_err"], matrix_rec["max_abs_err"])
+        paths = {"main path": main_rec["launches"],
+                 "matrix": matrix_rec["launches"],
+                 "donated runs": donation_rec["launches"],
+                 "prewarmed rounds": prewarm_rec["launches"]}
     except Exception:  # noqa: BLE001 - report any failed phase, exit 1
         traceback.print_exc()
         log("FAIL")
         return 1
+    log("merge_window launches on the driven paths: "
+        + ", ".join(f"{k} {v}" for k, v in paths.items()))
     log(json.dumps({"kernels": [{
         "name": "merge_window",
         "route": "cuda",
         "source": "fluidframework_tpu_torch/ops/csrc/merge_window.cu",
         "replaces": "fluidframework_tpu/ops/pallas_merge.py:58",
-        "launches": main_rec["launches"],
+        "launches": sum(paths.values()),
         "max_abs_err": worst,
         "ms": time_rec["ms"],
         "plain_ms": time_rec["plain_ms"],

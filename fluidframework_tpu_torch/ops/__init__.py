@@ -1,6 +1,7 @@
 """The tensor layer: the merge plane's segment table, host bridge, plain
 step, window apply and its Hopper kernel, and two macro-step executor
-routes; the tree plane's atom codec, batched rebase and forest apply.
+routes; the scalar host replay; the matrix plane's axes and cells; the
+tree plane's atom codec, batched rebase and forest apply.
 
 The entry points below are exported lazily: this package file imports
 no submodule until one of its names is asked for, so ``convert`` and
@@ -8,12 +9,23 @@ no submodule until one of its names is asked for, so ``convert`` and
 cycle.
 
 - ``merge_kernel``: ``apply_window`` (the scan route; on a CUDA table
-  the Hopper kernel of ``cuda_merge``), ``pad_capacity``, ``compact``;
+  the Hopper kernel of ``cuda_merge``), its double-buffered twin
+  ``apply_window_pingpong``, ``pad_capacity``, ``compact``;
 - ``merge_chunk``: ``compile_chunks`` / ``build_chunked`` (host),
-  ``apply_window_chunked`` (device), ``macro_steps``, ``CHUNK_K``;
+  ``apply_window_chunked`` and its twin
+  ``apply_window_chunked_pingpong`` (device), ``macro_steps``,
+  ``CHUNK_K``;
 - ``event_graph``: ``build_event_graph`` (host),
-  ``apply_window_egwalker`` and ``apply_batch_egwalker`` (device),
-  ``EXECUTOR_ROUTES``, ``EG_K``, ``validate_executor``;
+  ``apply_window_egwalker``, its twin
+  ``apply_window_egwalker_pingpong`` and ``apply_batch_egwalker``
+  (device), ``EXECUTOR_ROUTES``, ``EG_K``, ``validate_executor``;
+- ``host_replay``: ``HostDocReplay``, ``replay_encoded`` (the scalar
+  host twin of the scan);
+- ``matrix_cells``: ``apply_cells_kernel``, ``CellPack`` (the cells'
+  LWW sort and scatter);
+- ``matrix_bridge``: ``MatrixStream``, ``pack_matrix_batch`` (host),
+  ``dispatch_matrix_batch``, ``apply_matrix_batch`` (device),
+  ``extract_matrix`` (host);
 - ``tree_kernel``: ``rebase_atoms``, ``rebase_over_trunk`` (the tree
   plane's batched rebase);
 - ``tree_apply``: ``encode_tree_commit``, ``pack_tree_window``,
@@ -25,10 +37,12 @@ from importlib import import_module
 
 _EXPORTS = {
     "apply_window": "merge_kernel",
+    "apply_window_pingpong": "merge_kernel",
     "compact": "merge_kernel",
     "pad_capacity": "merge_kernel",
     "CHUNK_K": "merge_chunk",
     "apply_window_chunked": "merge_chunk",
+    "apply_window_chunked_pingpong": "merge_chunk",
     "build_chunked": "merge_chunk",
     "compile_chunks": "merge_chunk",
     "macro_steps": "merge_chunk",
@@ -36,8 +50,18 @@ _EXPORTS = {
     "EXECUTOR_ROUTES": "event_graph",
     "apply_batch_egwalker": "event_graph",
     "apply_window_egwalker": "event_graph",
+    "apply_window_egwalker_pingpong": "event_graph",
     "build_event_graph": "event_graph",
     "validate_executor": "event_graph",
+    "HostDocReplay": "host_replay",
+    "replay_encoded": "host_replay",
+    "CellPack": "matrix_cells",
+    "apply_cells_kernel": "matrix_cells",
+    "MatrixStream": "matrix_bridge",
+    "apply_matrix_batch": "matrix_bridge",
+    "dispatch_matrix_batch": "matrix_bridge",
+    "extract_matrix": "matrix_bridge",
+    "pack_matrix_batch": "matrix_bridge",
     "rebase_atoms": "tree_kernel",
     "rebase_over_trunk": "tree_kernel",
     "TREE_EXECUTOR_ROUTES": "tree_apply",

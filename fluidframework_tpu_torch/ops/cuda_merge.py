@@ -26,7 +26,7 @@ from pathlib import Path
 import torch
 
 from .merge_kernel import check_capacity
-from .segment_table import PROP_CHANNELS, OpBatch, SegmentTable
+from .segment_table import PROP_CHANNELS, OpBatch, SegmentTable, check_donated
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "merge_window.cu"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -161,10 +161,13 @@ def _check(name: str, t: torch.Tensor, shape: tuple,
         raise ValueError(f"{name} is not contiguous")
 
 
-def apply_window_cuda(table: SegmentTable, batch: OpBatch) -> SegmentTable:
-    """Launch the window kernel: apply ``batch`` to ``table`` into a
-    freshly allocated output table (the input stays untouched). Returns
-    at enqueue; raises on any input the kernel does not take or on a
+def apply_window_cuda(table: SegmentTable, batch: OpBatch,
+                      out: SegmentTable | None = None) -> SegmentTable:
+    """Launch the window kernel: apply ``batch`` to ``table`` into
+    ``out`` (a donated table of the same shape, written and never read)
+    or, by default, a freshly allocated output table; the input stays
+    untouched. Returns at enqueue; raises on any input the kernel does
+    not take, on an ``out`` that shares storage with an input, or on a
     refused launch."""
     global LAUNCHES
     device = table.device
@@ -182,18 +185,24 @@ def apply_window_cuda(table: SegmentTable, batch: OpBatch) -> SegmentTable:
         _check(f"table.{f}", getattr(table, f), shape, device)
     for f in OpBatch._fields:
         _check(f"batch.{f}", getattr(batch, f), (D, W), device)
-    out = launch(load_library(), table, batch)
+    if out is not None:
+        for f in SegmentTable._fields:
+            _check(f"out.{f}", getattr(out, f),
+                   tuple(getattr(table, f).shape), device)
+        check_donated(out, table, batch)
+    out = launch(load_library(), table, batch, out)
     LAUNCHES += 1
     return out
 
 
-def launch(lib: ctypes.CDLL, table: SegmentTable,
-           batch: OpBatch) -> SegmentTable:
-    """Launch ``lib``'s kernel on inputs already checked: a fresh output
-    table, the current stream of the table's device; raises on a refused
-    launch."""
+def launch(lib: ctypes.CDLL, table: SegmentTable, batch: OpBatch,
+           out: SegmentTable | None = None) -> SegmentTable:
+    """Launch ``lib``'s kernel on inputs already checked, into ``out``
+    (default: a fresh output table), on the current stream of the
+    table's device; raises on a refused launch."""
     D, C, W = table.docs, table.capacity, batch.kind.shape[-1]
-    out = SegmentTable(*(torch.empty_like(t) for t in table))
+    if out is None:
+        out = SegmentTable(*(torch.empty_like(t) for t in table))
     ptrs = (ctypes.c_void_p * 36)(
         *(t.data_ptr() for t in table),
         *(t.data_ptr() for t in out),

@@ -63,6 +63,8 @@ from .segment_table import (
     KIND_REMOVE,
     OpBatch,
     SegmentTable,
+    check_donated,
+    copy_into,
 )
 
 # The sidecar's executor routes: one registry, validated loudly.
@@ -455,6 +457,25 @@ def apply_window_egwalker(table: SegmentTable, prefix: dict,
     ``build_event_graph``'s output) to the table; returns a new table.
     ``K`` must equal the build's k_max."""
     return run_macro_steps(table, prefix, K, _walker_step, steps)[0]
+
+
+def apply_window_egwalker_pingpong(dead: Optional[SegmentTable],
+                                   table: SegmentTable, prefix: dict,
+                                   K: int = EG_K,
+                                   steps: int | None = None) -> SegmentTable:
+    """Double-buffered twin of ``apply_window_egwalker``: the walker's
+    result is copied into ``dead`` (a retired table of the same shape,
+    never read), one ``copy_`` per field, while ``table`` survives as
+    the caller's pre-dispatch snapshot. ``dead=None`` is the plain
+    call. Only the walker stage donates: the concurrent suffix's input
+    is this stage's live output, so it always dispatches plain. Raises
+    ``ValueError`` if ``dead`` differs in shape or shares storage with
+    an input."""
+    if dead is None:
+        return apply_window_egwalker(table, prefix, K=K, steps=steps)
+    check_donated(dead, table, prefix)
+    return copy_into(dead, apply_window_egwalker(table, prefix, K=K,
+                                                 steps=steps))
 
 
 def apply_batch_egwalker(table: SegmentTable, batch: OpBatch,

@@ -60,6 +60,8 @@ from .segment_table import (
     PROP_CHANNELS,
     OpBatch,
     SegmentTable,
+    check_donated,
+    copy_into,
 )
 
 # extra per-op int32 arrays the chunk compiler emits alongside OpBatch
@@ -778,3 +780,21 @@ def apply_window_chunked(table: SegmentTable, chunked: dict,
     """Apply a compiled chunk program (``compile_chunks`` output) to the
     table; returns a new table. ``K`` must equal the compile's k_max."""
     return run_macro_steps(table, chunked, K, _macro_step, steps)[0]
+
+
+def apply_window_chunked_pingpong(dead: SegmentTable | None,
+                                  table: SegmentTable, chunked: dict,
+                                  K: int = CHUNK_K,
+                                  steps: int | None = None) -> SegmentTable:
+    """Double-buffered twin of ``apply_window_chunked``: the result is
+    written into ``dead`` (a retired table of the same shape, never
+    read), while ``table`` survives as the caller's pre-dispatch
+    snapshot. The macro-steps build new tensors each step, so the final
+    state is copied into ``dead``'s storage, one ``copy_`` per field.
+    ``dead=None`` is the plain call. Raises ``ValueError`` if ``dead``
+    differs in shape or shares storage with an input."""
+    if dead is None:
+        return apply_window_chunked(table, chunked, K=K, steps=steps)
+    check_donated(dead, table, chunked)
+    return copy_into(dead, apply_window_chunked(table, chunked, K=K,
+                                                steps=steps))

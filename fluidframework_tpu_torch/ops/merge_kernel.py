@@ -11,6 +11,8 @@ is across documents.
   or raises — there is no fallback.
 - ``apply_window_plain``: the plain loop on any device, which the
   kernel is held against.
+- ``apply_window_pingpong``: the double-buffered twin of
+  ``apply_window``; its output is written into a retired table.
 - ``pad_capacity`` / ``compact``: plain torch (the reference has them
   as XLA programs, not Pallas kernels).
 """
@@ -20,7 +22,14 @@ import torch
 import torch.nn.functional as F
 
 from .merge_step import fused_step, state_to_table, table_to_state
-from .segment_table import NOT_REMOVED, OPOFF_BOUND, OpBatch, SegmentTable
+from .segment_table import (
+    NOT_REMOVED,
+    OPOFF_BOUND,
+    OpBatch,
+    SegmentTable,
+    check_donated,
+    copy_into,
+)
 
 
 def check_capacity(capacity: int) -> None:
@@ -54,6 +63,25 @@ def apply_window(table: SegmentTable, batch: OpBatch) -> SegmentTable:
     from .cuda_merge import apply_window_cuda
 
     return apply_window_cuda(table, batch)
+
+
+def apply_window_pingpong(dead: SegmentTable, table: SegmentTable,
+                          batch: OpBatch) -> SegmentTable:
+    """Double-buffered dispatch: apply ``batch`` to ``table`` with the
+    output written into ``dead``, a retired table of the same shape
+    (the sidecar's snapshot of two dispatches ago), which is never
+    read. ``table`` survives as the pre-dispatch snapshot that a regrow
+    re-applies from. Returns a table whose storage is ``dead``'s; the
+    caller drops every other reference to ``dead``. On a CUDA table the
+    window kernel writes into ``dead`` directly; on the CPU the plain
+    loop's result is copied into it. Raises ``ValueError`` if ``dead``
+    differs in shape or shares storage with ``table`` or ``batch``."""
+    if table.device.type == "cuda":
+        from .cuda_merge import apply_window_cuda
+
+        return apply_window_cuda(table, batch, out=dead)  # checks dead
+    check_donated(dead, table, batch)
+    return copy_into(dead, apply_window(table, batch))
 
 
 def pad_capacity(table: SegmentTable, new_capacity: int) -> SegmentTable:

@@ -96,6 +96,50 @@ def make_table(docs: int, capacity: int,
     )
 
 
+def _storages(tensors) -> set:
+    """Storage addresses of the tensors among ``tensors`` (anything else,
+    e.g. a numpy array of a host program, is skipped). Host-side only:
+    reading a storage pointer never waits for the device."""
+    return {t.untyped_storage().data_ptr() for t in tensors
+            if isinstance(t, torch.Tensor) and t.numel()}
+
+
+def shares_storage(table: SegmentTable, *groups) -> bool:
+    """True when a field of ``table`` shares storage with a tensor of
+    ``groups`` (tables, batches, dicts of a program, or tensors)."""
+    others = set()
+    for g in groups:
+        if isinstance(g, torch.Tensor):
+            g = (g,)
+        elif isinstance(g, dict):
+            g = g.values()
+        others |= _storages(g)
+    return not _storages(table).isdisjoint(others)
+
+
+def check_donated(dead: SegmentTable, table: SegmentTable, *inputs) -> None:
+    """The donated output table of a double-buffered dispatch must have
+    the live input's shape and share no storage with it nor with the
+    dispatch's other inputs: the dispatch writes into ``dead`` and
+    never reads it, while the live input survives as the sidecar's
+    pre-dispatch snapshot. Raises ``ValueError``."""
+    if (dead.docs, dead.capacity) != (table.docs, table.capacity):
+        raise ValueError(
+            f"donated table is {dead.docs} x {dead.capacity}, the input "
+            f"{table.docs} x {table.capacity}")
+    if shares_storage(dead, table, *inputs):
+        raise ValueError("donated table shares storage with an input of "
+                         "the dispatch")
+
+
+def copy_into(dead: SegmentTable, table: SegmentTable) -> SegmentTable:
+    """Write ``table`` into ``dead``'s storage, one ``copy_`` per field;
+    returns ``dead``."""
+    for d, t in zip(dead, table):
+        d.copy_(t)
+    return dead
+
+
 @dataclass
 class ShardedTable:
     """A segment table split by rows over devices (the doc-sharded pool's

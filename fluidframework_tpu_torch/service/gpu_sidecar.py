@@ -21,10 +21,15 @@ asynchronous, so the host can pack the next round while the device
 computes. ``_settle`` is the only host<->device sync: one read of the
 in-flight round's ``overflow`` flags, and recovery when one is set.
 
-OVERFLOW RECOVERY (grow, then pool, then host): every route writes each
-round into a fresh table, so the pre-dispatch table stays valid as a
-snapshot. A document that outgrows its slab makes the sidecar REGROW
-(2x): pad the snapshot and re-apply the same compiled program, already
+DONATED DOUBLE BUFFER (``donate=``, ``FFTPU_SIDECAR_DONATE``): with
+donation on, a round writes its output into the snapshot of two rounds
+ago (retired at the previous settle) through the routes' ``*_pingpong``
+twins instead of a fresh table; the live input is never the donated one.
+
+OVERFLOW RECOVERY (grow, then pool, then host): no route writes into
+its input table, so the pre-dispatch table stays valid as a snapshot.
+A document that outgrows its slab makes the sidecar REGROW (2x): pad
+the snapshot and re-apply the same compiled program, already
 on the device — O(window). The macro-step routes PARK an overflowed
 document at its pre-chunk state where the scan applies on; the re-apply
 from the snapshot makes served state equal either way. Past
@@ -54,6 +59,7 @@ from ..convert import batch_from_numpy, program_to_device
 from ..models.mergetree import MergeTreeClient
 from ..ops.bucket_ladder import BucketLadder
 from ..ops.host_bridge import (
+    OP_FIELDS,
     DocStream,
     coalesce_noops,
     decode_stream,
@@ -67,17 +73,30 @@ from ..ops.host_bridge import (
 from ..ops.event_graph import (
     EG_K,
     apply_window_egwalker,
+    apply_window_egwalker_pingpong,
     build_event_graph,
     validate_executor,
 )
 from ..ops.merge_chunk import (
     CHUNK_K,
     apply_window_chunked,
+    apply_window_chunked_pingpong,
     compile_chunks,
     macro_steps,
 )
-from ..ops.merge_kernel import apply_window, compact, pad_capacity
-from ..ops.segment_table import KIND_NOOP, OpBatch, SegmentTable, make_table
+from ..ops.merge_kernel import (
+    apply_window,
+    apply_window_pingpong,
+    compact,
+    pad_capacity,
+)
+from ..ops.segment_table import (
+    KIND_NOOP,
+    OpBatch,
+    SegmentTable,
+    make_table,
+    shares_storage,
+)
 from ..parallel.mesh import DOC_AXIS, DeviceMesh
 from ..parallel.seq_shard import SEQ_AXIS, apply_window_seq_sharded
 from ..protocol.messages import MessageType, SequencedMessage
@@ -97,6 +116,26 @@ def default_executor() -> str:
         validate_executor(env, "FFTPU_SIDECAR_EXECUTOR")
         return env
     return "scan"
+
+
+def default_donate() -> bool:
+    """Whether the sidecar donates retired tables when the caller does
+    not say: ``FFTPU_SIDECAR_DONATE=0|1`` if set (any other value
+    raises ``ValueError``), else off on every device. On the CPU a
+    donating twin only adds a copy per field. On the card the default
+    was set from the port's H100 numbers (PERF.md, "Donation"): no
+    route gains device time from donation (the window kernel writes a
+    retired table no faster than a fresh one, the caching allocator
+    reuses freed tables anyway), and the macro-step routes lose some to
+    the copy per field that their twins add each round, and hold one
+    more table between rounds."""
+    env = os.environ.get("FFTPU_SIDECAR_DONATE")
+    if env:
+        if env not in ("0", "1"):
+            raise ValueError(
+                f"FFTPU_SIDECAR_DONATE={env!r}: expected '0' or '1'")
+        return env == "1"
+    return False
 
 
 class SeqShardedPool:
@@ -359,6 +398,10 @@ class GpuMergeSidecar:
     the pool tier on, built by ``select_pool`` (``pool_route`` /
     ``FFTPU_SIDECAR_POOL`` override its choice; ``pool_capacity`` its
     per-document capacity).
+
+    ``donate`` (None: ``default_donate``) turns the donated double
+    buffer on: each round's output is written into the table retired
+    two rounds ago (the pools keep their own dispatch).
     """
 
     def __init__(self, max_docs: int = 1024, capacity: int = 1024,
@@ -367,6 +410,7 @@ class GpuMergeSidecar:
                  pool_route: Optional[str] = None,
                  executor: Optional[str] = None,
                  pipeline: bool = True,
+                 donate: Optional[bool] = None,
                  ladder: Optional[BucketLadder] = None,
                  device: torch.device | str = "cuda"):
         validate_executor(executor, "executor")
@@ -376,6 +420,8 @@ class GpuMergeSidecar:
             raise RuntimeError(
                 "GpuMergeSidecar needs a CUDA device; pass device='cpu' "
                 "to run the plain version on the CPU")
+        self.donate = (donate if donate is not None
+                       else default_donate())
         # pool tier: past the ladder top, documents move to a pool on the
         # mesh before any host eviction
         self._pool = None
@@ -415,6 +461,9 @@ class GpuMergeSidecar:
         self._prev_table: Optional[SegmentTable] = None
         self._last_program: Optional[dict] = None
         self._unsettled = False
+        # donation fodder: the snapshot retired at the last settle, which
+        # the next round writes its output into (donate on)
+        self._dead: Optional[SegmentTable] = None
         self._applies = 0
         self._compact_every = compact_every
         self.grow_count = 0
@@ -537,19 +586,59 @@ class GpuMergeSidecar:
         """Barrier: settle the in-flight round (overflow recovery)."""
         self._settle()
 
-    def prewarm(self) -> float:
-        """Build and load the window kernel (nothing to do on the CPU);
-        returns the seconds it took."""
-        if self.device.type != "cuda":
-            return 0.0
-        from ..ops.cuda_merge import prewarm
+    def prewarm(self, max_bucket: Optional[int] = None) -> float:
+        """Walk every shape the (docs, window, capacity) ladder can
+        reach on scratch tables: an all-noop window per capacity rung of
+        the regrow ladder (``capacity`` up to ``max_capacity``) x window
+        bucket up to ``max_bucket`` (default: the ladder's own) through
+        the active route (through its donating
+        twin when ``donate`` is on; on the egwalker route also the
+        suffix's scan), ``compact`` per rung and ``pad_capacity``
+        between rungs, then the pool's prewarm. On ``cuda`` the window
+        kernel is built first and the walk ends in one device sync.
+        The live table is untouched. A rung past 8192 trips the
+        capacity ceiling, as in the reference (ROADMAP §C). Returns the
+        seconds spent."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            from ..ops.cuda_merge import prewarm as build_kernel
 
-        return prewarm() + (self._pool.prewarm() if self._pool else 0.0)
+            build_kernel()
+        noop = dict.fromkeys(OP_FIELDS, 0)
+        noop["kind"] = KIND_NOOP
+        head = np.zeros(self.max_docs, np.int64)
+        prev = None
+        for rung in BucketLadder.capacity_rungs(self.capacity,
+                                                self.max_capacity):
+            table = make_table(self.max_docs, rung, self.device)
+            for bucket in self.ladder.window_buckets(max_bucket):
+                arrays = pack_rows(self.max_docs, {0: [noop]},
+                                   bucket_floor=bucket)
+                program = self._to_device(
+                    self._compile_program(arrays, head))
+                dead = (make_table(self.max_docs, rung, self.device)
+                        if self.donate else None)
+                table = self._apply_program(table, program, dead)
+                if self.executor == "egwalker":
+                    # an all-noop window is wholly critical, so the walk
+                    # applies the suffix's scan at this shape itself
+                    table = self._apply_program(
+                        table, self._to_device({"scan": arrays, "steps": 0}))
+            table = compact(table)
+            if prev is not None:
+                pad_capacity(prev, rung)
+            prev = table
+        if self._pool is not None:
+            self._pool.prewarm()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
 
-    def _compile_program(self, arrays: dict) -> dict:
+    def _compile_program(self, arrays: dict, base_head: np.ndarray) -> dict:
         """Host half of one dispatch: the packed arrays for the scan
         route, the compiled chunk program for the chunked route, the
-        event-graph program (critical prefix + concurrent suffix) for
+        event-graph program (critical prefix + concurrent suffix,
+        judged against the per-slot applied heads ``base_head``) for
         the egwalker route — each with its macro-step count, counted
         here on the host."""
         if self.executor == "chunked":
@@ -558,7 +647,7 @@ class GpuMergeSidecar:
                     "steps": macro_steps(program["chunk_start"], CHUNK_K)}
         if self.executor == "egwalker":
             program = build_event_graph(
-                arrays, base_head=self._slot_head, k_max=EG_K,
+                arrays, base_head=base_head, k_max=EG_K,
                 window_floor=self.ladder.window_floor)
             prefix = program["prefix"]
             return {"prefix": prefix, "suffix": program["suffix"],
@@ -579,21 +668,28 @@ class GpuMergeSidecar:
                 out[key] = program_to_device(out[key], self.device)
         return out
 
-    def _apply_program(self, table: SegmentTable,
-                       program: dict) -> SegmentTable:
+    def _apply_program(self, table: SegmentTable, program: dict,
+                       dead: Optional[SegmentTable] = None) -> SegmentTable:
         """Device half of one dispatch, on a program already on the
-        device. Enqueues work only: nothing here waits for the device."""
+        device; ``dead`` (optional) is a retired table of ``table``'s
+        shape that the route's donating twin writes its output into.
+        Enqueues work only: nothing here waits for the device."""
         if "scan" in program:
+            if dead is not None:
+                return apply_window_pingpong(dead, table, program["scan"])
             return apply_window(table, program["scan"])
         if "chunked" in program:
-            return apply_window_chunked(table, program["chunked"],
-                                        K=CHUNK_K, steps=program["steps"])
+            return apply_window_chunked_pingpong(
+                dead, table, program["chunked"], K=CHUNK_K,
+                steps=program["steps"])
         # egwalker: the walker over every doc's critical prefix, then
         # the scan over the concurrent suffixes (per doc the suffix
-        # follows the prefix in sequenced order)
+        # follows the prefix in sequenced order). Donation rides the
+        # walker stage: the suffix's input is that stage's live output
         if program["prefix"] is not None:
-            table = apply_window_egwalker(table, program["prefix"],
-                                          K=EG_K, steps=program["steps"])
+            table = apply_window_egwalker_pingpong(
+                dead, table, program["prefix"], K=EG_K,
+                steps=program["steps"])
         if program["suffix"] is not None:
             table = apply_window(table, program["suffix"])
         return table
@@ -619,7 +715,7 @@ class GpuMergeSidecar:
             {slot: ops for slot, ops in enumerate(packed) if ops},
             bucket_floor=self.ladder.window_floor,
         )
-        program = self._compile_program(arrays)
+        program = self._compile_program(arrays, self._slot_head)
         if self.executor == "egwalker":
             # advance the applied heads AFTER compiling: the program's
             # criticality was judged against the pre-window heads (a
@@ -642,12 +738,27 @@ class GpuMergeSidecar:
         # SYNC BOUNDARY — read the previous round's overflow flag before
         # its snapshot is retired
         self._settle()
+        dead, self._dead = self._dead, None
         self._prev_table = self._table
         self._last_program = self._to_device(program)
         self._unsettled = True
-        self._table = self._apply_program(self._prev_table,
-                                          self._last_program)
+        self._table = self._apply_program(
+            self._prev_table, self._last_program,
+            self._fodder(dead, self._prev_table))
         return real + pool_real
+
+    def _fodder(self, dead: Optional[SegmentTable],
+                table: SegmentTable) -> Optional[SegmentTable]:
+        """``dead`` if a round on the live ``table`` may write into it:
+        donation on, ``table``'s shape, and no storage shared with it (a
+        route may pass an untouched field through, and ``compact`` /
+        ``_retire_rows`` build tables that share fields). Host-only."""
+        if (not self.donate or dead is None
+                or (dead.docs, dead.capacity) != (table.docs,
+                                                  table.capacity)
+                or shares_storage(dead, table)):
+            return None
+        return dead
 
     def _settle(self) -> None:
         """The host<->device sync boundary: read the in-flight round's
@@ -662,6 +773,11 @@ class GpuMergeSidecar:
         self.stats["settle_s"] += time.perf_counter() - t0
         if overflowed:
             self._recover()
+            # recovery re-applied, possibly at a new capacity: the old
+            # snapshot is no fodder
+            self._dead = None
+        elif self.donate:
+            self._dead = self._prev_table
         self._prev_table = None
         self._last_program = None
         if self._pool is not None and self._pool.members:

@@ -46,6 +46,14 @@ POOL_MODULES = (
     "fluidframework_tpu_torch.parallel.mesh_pool",
     "fluidframework_tpu_torch.parallel.distributed",
 )
+# the host replay's and the matrix plane's modules, named for the same
+# reason
+MATRIX_MODULES = (
+    "fluidframework_tpu_torch.ops.host_replay",
+    "fluidframework_tpu_torch.ops.matrix_cells",
+    "fluidframework_tpu_torch.ops.matrix_bridge",
+    "fluidframework_tpu_torch.testing.matrix_streams",
+)
 
 _CHILD = r"""
 import importlib, json, pkgutil, sys
@@ -71,8 +79,8 @@ def test_port_import_loads_no_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
     out = json.loads(proc.stdout)
     assert len(out["names"]) >= 20
-    assert set(ROUTE_MODULES + TREE_MODULES + POOL_MODULES) <= set(
-        out["names"])
+    assert set(ROUTE_MODULES + TREE_MODULES + POOL_MODULES
+               + MATRIX_MODULES) <= set(out["names"])
     assert out["bad"] == []
 
 
@@ -82,7 +90,7 @@ def _sources():
 
 def test_source_scan_covers_the_route_modules():
     scanned = set(_sources())
-    for name in ROUTE_MODULES + TREE_MODULES + POOL_MODULES:
+    for name in ROUTE_MODULES + TREE_MODULES + POOL_MODULES + MATRIX_MODULES:
         path = REPO.joinpath(*name.split(".")).with_suffix(".py")
         assert path in scanned, name
 
@@ -113,6 +121,13 @@ def test_ops_package_exports_the_route_entry_points():
 
     assert ops.apply_tree_window is tree_apply.apply_tree_window
     assert ops.rebase_atoms is tree_kernel.rebase_atoms
+    from fluidframework_tpu_torch.ops import (
+        host_replay, matrix_bridge, matrix_cells,
+    )
+
+    assert ops.replay_encoded is host_replay.replay_encoded
+    assert ops.CellPack is matrix_cells.CellPack
+    assert ops.dispatch_matrix_batch is matrix_bridge.dispatch_matrix_batch
     for name in ops.__all__:
         assert getattr(ops, name) is not None, name
     with pytest.raises(AttributeError):
@@ -124,6 +139,17 @@ def test_sidecar_without_gpu_raises():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         GpuMergeSidecar()
+
+
+def test_matrix_plane_without_gpu_raises():
+    from fluidframework_tpu_torch.ops import CellPack, dispatch_matrix_batch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CellPack(4, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dispatch_matrix_batch(None, 1)
 
 
 def test_tree_plane_without_gpu_raises():
