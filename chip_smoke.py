@@ -27,8 +27,10 @@ cells as one LWW sort and scatter) against the host replay, a host LWW
 and a host materialization of every matrix, runs the main path and
 config14's mixed corpus on both macro-step routes with the donated
 double buffer on and off, walks ``prewarm``'s capacity x window ladder
-at the main path's shape, and times the kernel beside its plain
-version.
+at the main path's shape, reruns the main path with every observability
+and protection hook on under one torch.profiler trace and drives chaos
+at the merge sidecar's, a mesh pool's and the tree sidecar's seams, and
+times the kernel beside its plain version.
 
 The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
@@ -49,13 +51,18 @@ times of the axis window and the cells' sort and scatter; each
 "donation:" line one run with donation on or off (wall, device time,
 peak memory, allocator requests per round) and the last one a donated
 window's and a copy's times; the "prewarm:" line the walk's seconds and
-shapes and the first round after it beside the steady ones. The times
-lines cover the window
-rungs 16 / 32 / 64 at the main shape and the capacities 4096 and 8192,
-with the NOOP share of each timed batch. Every phase runs on every
-call; any failure exits
-non-zero without those lines, as does a machine with no CUDA device or a
-directory without the port package. Imports nothing of JAX.
+shapes and the first round after it beside the steady ones. The "obs:"
+lines hold the registry's counters after the earlier phases, the main
+path with the hooks on (its wall beside the hooks-off one, the host
+profiler's overhead, and the checks: oracle, the hooks-off run, one
+dispatch range per round around every kernel launch, registry ==
+counters, heat conserved, hops, the sanitizer's bounds, no host sync in
+the device half) and one line per chaos run. The times lines cover the
+window rungs 16 / 32 / 64 at the main shape and the capacities 4096 and
+8192, with the NOOP share and the bound of each timed batch. Every phase
+runs on every call; any failure exits non-zero without those lines, as
+does a machine with no CUDA device or a directory without the port
+package. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -252,19 +259,23 @@ def _alloc_count() -> int:
     return torch.cuda.memory_stats().get("allocation.all.allocated", 0)
 
 
-def drive_config2(raw: list, donate=None) -> dict:
+def drive_config2(raw: list, donate=None, **hooks) -> dict:
     """bench config2 at full width through ``GpuMergeSidecar`` on the
     scan route: every document a tile of ``raw``, rounds of 16 / 32 / 48
     messages. Returns the sidecar and the run's numbers: wall, ingest,
     rounds, real ops, window-kernel launches, the device trace, peak
-    device memory and the allocator's allocation requests."""
+    device memory and the allocator's allocation requests. ``hooks``
+    (the obs phase's) go to the sidecar, with its messages; the run then
+    takes no CUDA-only trace of its own (the caller's device trace covers
+    it, and only one profiler runs at a time)."""
     from fluidframework_tpu_torch.ops import cuda_merge
     from fluidframework_tpu_torch.service import GpuMergeSidecar
 
     n_distinct = len(raw)
     wrapped = [_wrap(s) for s in raw]
     sidecar = GpuMergeSidecar(max_docs=MAIN_DOCS, capacity=MAIN_CAPACITY,
-                              executor="scan", donate=donate, device="cuda")
+                              executor="scan", donate=donate, device="cuda",
+                              **hooks)
     doc_ids = [f"doc-{d}" for d in range(MAIN_DOCS)]
     for doc in doc_ids:
         sidecar.track(doc, "d", "s")
@@ -277,8 +288,8 @@ def drive_config2(raw: list, donate=None) -> dict:
     torch.cuda.synchronize()
     # device activity only: the trace gives the device-busy time of the
     # run (kernels and copies, one stream), no host op events
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with (contextlib.nullcontext() if hooks else torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])) as prof:
         t0 = time.perf_counter()
         longest = max(len(s) for s in wrapped)
         chunks = (16, 32, 48)  # ~32 per round; windows on the 16/32/64 rungs
@@ -299,9 +310,10 @@ def drive_config2(raw: list, donate=None) -> dict:
         wall = time.perf_counter() - t0
     return {"sidecar": sidecar, "doc_ids": doc_ids, "wall": wall,
             "ingest_s": ingest_s, "rounds": rounds, "real": real,
-            "launches": cuda_merge.LAUNCHES, "busy": _device_busy_ms(prof),
+            "launches": cuda_merge.LAUNCHES,
+            "busy": None if hooks else _device_busy_ms(prof),
             "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
-            "allocs": _alloc_count() - allocs}
+            "allocs": _alloc_count() - allocs, "wrapped": wrapped}
 
 
 def _served(sidecar, doc_ids: list) -> dict:
@@ -859,12 +871,13 @@ def _check_tree_tiles(sidecar, rec, recorded, route) -> None:
                              f"stream's first row at {diff}")
 
 
-def phase_tree() -> None:
+def phase_tree() -> list:
     """Both tree routes over the recorded corpus at 1024 documents:
     every document equals its stream's EditManager replay, the two
     routes' live tables are equal, the slab grows once (128 -> 256), no
     document leaves the device, and no host sync happens in a device
-    half. Then CUDA-event times of one window step's programs."""
+    half. Then CUDA-event times of one window step's programs. Returns
+    the recorded corpus."""
     t0 = time.perf_counter()
     recorded = tree_corpus()
     corpus_s = time.perf_counter() - t0
@@ -924,6 +937,7 @@ def phase_tree() -> None:
         f"entries newer than their ref (of {held['table'].ring_seq.shape[1]}"
         f"): {_ring_activity(recorded)}")
     time_tree_programs(held)
+    return recorded
 
 
 def time_tree_programs(held: dict) -> None:
@@ -1053,6 +1067,7 @@ def phase_pool_longdoc(seed: int, long_raw: list) -> dict:
     dispatch at capacity 8192 kernel against plain on every field."""
     from fluidframework_tpu_torch import convert
     from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.ops.merge_kernel import compiled_window
     from fluidframework_tpu_torch.parallel import MeshShardedPool, make_mesh
     from fluidframework_tpu_torch.service import GpuMergeSidecar
     from fluidframework_tpu_torch.testing import FuzzConfig, record_op_stream
@@ -1125,6 +1140,7 @@ def phase_pool_longdoc(seed: int, long_raw: list) -> dict:
     _, err = _check_window(table, batch,
                            f"pool dispatch D={table.docs} C={table.capacity} "
                            f"W={W}")
+    cost = compiled_window(table, batch)[2]
     st = sidecar.stats
     log(f"pool: long-document tier: mesh {[str(d) for d in mesh.device_list()]}"
         f", {POOL_DOCS} docs ({n_short} config2 streams tiled, "
@@ -1148,7 +1164,7 @@ def phase_pool_longdoc(seed: int, long_raw: list) -> dict:
         + ", ".join(f"{n} {ms:.3f} ms" for n, ms in busy["top"][:3])
         + f"; all {POOL_DOCS} docs == oracle ({check_s:.3f} s); pool "
         f"dispatch kernel == plain at D={table.docs} C={table.capacity} "
-        f"W={W}, all fields")
+        f"W={W}, all fields; that window's " + _bound_line(cost))
     return {"max_abs_err": err, "pool_launches": seen["launches"]}
 
 
@@ -1934,63 +1950,456 @@ def phase_prewarm(raw: list) -> dict:
 
 
 # ----------------------------------------------------------------------
-# times at the main path's shape
+# obs: the observability and protection hooks on the main path, and chaos
 
-def step_ops_per_slot() -> int:
-    """int32 ALU operations per slot of one fused_step, counted by running
-    the plain version once on a tiny CPU input under a dispatch counter.
+OBS_HOPS = ("sidecar:pack", "sidecar:settle")
+OBS_CHAOS_SEED = 7
 
-    An op counts once when it reads or writes one element per slot (the
-    min-reduces of the 12 lookups count by what they read). Not counted:
-    views (expand, slice), the zero-fill pads and the dtype casts, which
-    are data movement the kernel does as addressing. The plain version
-    shifts each field by 1 or 2 slots with two nested selects; the
-    kernel does it with one indexed load per field (src = j - m), so the
-    two count as one select per field."""
-    from torch.utils._python_dispatch import TorchDispatchMode
 
-    from fluidframework_tpu_torch.ops.merge_step import (
-        fused_step, table_to_state,
+def _registry_line(prefixes: tuple) -> str:
+    """The nonzero counters and gauges of the port's registry whose
+    names start with ``prefixes``, as ``name{labels}=value``."""
+    from fluidframework_tpu_torch.obs import REGISTRY
+
+    flat = REGISTRY.flat()
+    return ", ".join(f"{k}={v:g}" for k, v in sorted(flat.items())
+                     if k.startswith(prefixes) and v and "_ms_" not in k)
+
+
+def _guard_device_trace() -> dict:
+    """Run every ``device_trace`` range of the merge sidecar (the device
+    half of a dispatch, entry and exit included) with CUDA sync debugging
+    set to "error": any host<->device sync in it raises. Returns the
+    counter of guarded ranges; ``seen["restore"]()`` puts the hook
+    back."""
+    from fluidframework_tpu_torch.service import gpu_sidecar
+
+    seen = {"calls": 0}
+    inner = gpu_sidecar.device_trace
+
+    @contextlib.contextmanager
+    def guarded(name, device=None):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with inner(name, device):
+                yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            seen["calls"] += 1
+
+    gpu_sidecar.device_trace = guarded
+    seen["restore"] = lambda: setattr(gpu_sidecar, "device_trace", inner)
+    return seen
+
+
+def _check_dispatch_trace(events: list, rounds: int, launches: int) -> str:
+    """One ``sidecar:dispatch:r{n}`` range per round in the device trace,
+    and every window-kernel launch inside one: its launch call (matched
+    by correlation id) within a range on the host's timeline."""
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith("sidecar:dispatch:r")]
+    names = sorted(e["name"] for e in ranges)
+    want = sorted(f"sidecar:dispatch:r{n}" for n in range(1, rounds + 1))
+    if names != want:
+        raise AssertionError(f"dispatch ranges {names[:8]}..., expected one "
+                             f"per round: {want[:8]}...")
+    launch_of = {e["args"]["correlation"]: e for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "merge_window" in e.get("name", "")]
+    if len(kernels) != launches:
+        raise AssertionError(f"{len(kernels)} window kernels in the trace, "
+                             f"{launches} launches counted")
+    for k in kernels:
+        launch = launch_of.get(k.get("args", {}).get("correlation"))
+        if launch is None:
+            raise AssertionError(f"window kernel at ts {k['ts']}: the trace "
+                                 "holds no launch call for it")
+        if not any(r["ts"] <= launch["ts"] and launch["ts"] +
+                   launch.get("dur", 0) <= r["ts"] + r["dur"]
+                   for r in ranges):
+            raise AssertionError(f"window kernel at ts {k['ts']}: its launch "
+                                 f"call at ts {launch['ts']} lies outside "
+                                 "every sidecar:dispatch range")
+    return (f"{len(ranges)} sidecar:dispatch ranges (one per round); all "
+            f"{len(kernels)} window kernels launched inside one")
+
+
+def _obs_config2(main_rec: dict) -> dict:
+    """config2-full with every hook on, under one device trace."""
+    import os
+    import tempfile
+
+    from fluidframework_tpu_torch.obs import (
+        REGISTRY, ContinuousProfiler, HeatLedger, profiler,
     )
-    from fluidframework_tpu_torch.ops.segment_table import make_table
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.ops.bucket_ladder import ladder_bounds
+    from fluidframework_tpu_torch.qos import CircuitBreaker
+    from fluidframework_tpu_torch.service import gpu_sidecar
+    from fluidframework_tpu_torch.testing import jitsan
 
-    aten = torch.ops.aten
-    movement = {aten.constant_pad_nd.default, aten._to_copy.default}
-    D, C = 3, 8
-    st = table_to_state(make_table(D, C, "cpu"))
-    op = {f: torch.zeros((D, 1), dtype=torch.int32) for f in (
-        "kind", "pos1", "pos2", "seq", "refseq", "client", "op_id",
-        "length", "is_marker", "prop_key", "prop_val", "min_seq")}
+    raw = main_rec["raw"]
+    charges = []
+    attribute = gpu_sidecar.attribute_round
 
-    class Count(TorchDispatchMode):
-        ops = 0
-        shift_selects = 0
-        pads: list = []  # kept alive so their storages stay distinct
+    def counted(ledger, counts, round_ms, **kw):
+        charged = attribute(ledger, counts, round_ms, **kw)
+        charges.append((round_ms, charged, len(counts)))
+        return charged
 
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            if func is aten.constant_pad_nd.default:
-                Count.pads.append(out)
-            if func.is_view or func in movement:
-                return out
-            tensors = [a for a in args if isinstance(a, torch.Tensor)]
-            if isinstance(out, torch.Tensor):
-                tensors.append(out)
-            if not any(t.numel() >= D * C for t in tensors):
-                return out
-            shifted = {p.untyped_storage().data_ptr() for p in Count.pads}
-            if func is aten.where.self and any(
-                    t.untyped_storage().data_ptr() in shifted
-                    for t in tensors[1:3]):
-                Count.shift_selects += 1
-            else:
-                Count.ops += 1
-            return out
+    gpu_sidecar.attribute_round = counted
+    guard = _guard_device_trace()
+    os.environ["FFTPU_DEVICE_TRACE"] = "1"
+    heat = HeatLedger(max_keys=MAIN_DOCS)
+    brk = CircuitBreaker("obs-dispatch")
+    before = REGISTRY.flat()
+    sampler = ContinuousProfiler()
+    jitsan.install()
+    try:
+        with tempfile.TemporaryDirectory() as logdir:
+            sampler.start()
+            if not profiler.start_device_trace(logdir):
+                raise AssertionError("the device trace did not start")
+            run = drive_config2(raw, trace_ops=True, heat=heat, breaker=brk)
+            if not profiler.stop_device_trace():
+                raise AssertionError("the device trace did not stop")
+            sampler.stop()
+            with open(os.path.join(logdir, profiler.TRACE_FILE)) as f:
+                events = json.load(f)["traceEvents"]
+        counts = jitsan.compile_counts()
+        builds = jitsan.nvcc_builds()
+        jitsan.publish_compiles()
+    finally:
+        jitsan.uninstall()
+        os.environ.pop("FFTPU_DEVICE_TRACE", None)
+        guard["restore"]()
+        gpu_sidecar.attribute_round = attribute
+    sidecar = run.pop("sidecar")
+    rounds = sidecar.stats["rounds"]
+    _check_docs(sidecar, [(run["doc_ids"][i], raw[i])
+                          for i in range(len(raw))])
+    _same_served(main_rec["served"],
+                 _served(sidecar, run["doc_ids"][:len(raw)]),
+                 "config2-full with the hooks on")
+    trace_line = _check_dispatch_trace(events, rounds, run["launches"])
+    if guard["calls"] != rounds:
+        raise AssertionError(f"{guard['calls']} guarded device halves in "
+                             f"{rounds} rounds")
+    delta = REGISTRY.delta(before)
+    got = {k: delta.get(k, 0) for k in ("sidecar_rounds_total",
+                                        "sidecar_real_ops_total",
+                                        "sidecar_grow_total")}
+    want = {"sidecar_rounds_total": rounds,
+            "sidecar_real_ops_total": run["real"],
+            "sidecar_grow_total": sidecar.grow_count}
+    if got != want:
+        raise AssertionError(f"registry {got} != the sidecar's {want}")
+    if len(charges) != rounds:
+        raise AssertionError(f"{len(charges)} rounds charged of {rounds}")
+    for n, (ms, charged, docs) in enumerate(charges, 1):
+        if abs(charged - ms) > 1e-9 * ms:
+            raise AssertionError(f"round {n}: {charged!r} ms charged to "
+                                 f"{docs} documents of {ms!r}")
+    total = sum(heat.get(k) for k in heat.keys())
+    round_ms = sum(ms for ms, _, _ in charges)
+    if len(heat) != MAIN_DOCS or abs(total - round_ms) > 1e-9 * round_ms:
+        raise AssertionError(f"heat over {len(heat)} documents, {total!r} "
+                             f"of {round_ms!r} ms")
+    tiles = MAIN_DOCS // len(raw)
+    want_hops = [OBS_HOPS[0]] * tiles + [OBS_HOPS[1]] * tiles
+    for s, stream in enumerate(run["wrapped"]):
+        for i, msg in enumerate(stream):
+            hops = [f"{t.service}:{t.action}" for t in msg.traces]
+            if hops != want_hops:
+                raise AssertionError(
+                    f"stream {s} message {i}: hops {hops[:3]}... x "
+                    f"{len(hops)}, expected pack then settle, once per "
+                    f"document of its {tiles} tiles")
+    bounds = ladder_bounds(16, 64, MAIN_CAPACITY, sidecar.max_capacity)
+    over = {r: (counts[r], b) for r, b in bounds.items() if counts[r] > b}
+    lib = cuda_merge.library_path()
+    loaded = getattr(cuda_merge._lib, "_name", None)
+    if over or counts["apply_window"] < 1 or set(builds) - {lib.name} or \
+            any(n > 1 for n in builds.values()) or loaded != str(lib):
+        raise AssertionError(f"jitsan: signatures over the ladder bounds "
+                             f"{over}, window signatures "
+                             f"{counts['apply_window']}, nvcc builds "
+                             f"{builds} (at most one, of {lib.name}), "
+                             f"loaded {loaded}")
+    if brk.state != "closed" or sidecar.last_flight_dump is not None:
+        raise AssertionError(f"breaker {brk.state}, a flight dump")
+    run.update(rounds_checked=rounds, trace_line=trace_line,
+               overhead=sampler.overhead_fraction, samples=sampler.samples,
+               counts={r: n for r, n in counts.items() if n},
+               builds=builds, top=heat.top_k(3),
+               built=("built in this process" if builds
+                      else "found built in the checkout"),
+               guarded=guard["calls"])
+    return run
 
-    with Count():
-        fused_step(st, op)
-    return Count.ops + Count.shift_selects // 2
 
+def _chaos_merge() -> dict:
+    """config14's mixed corpus at its width on the scan route, with a
+    one-shot error_burst armed at sidecar.dispatch behind a breaker."""
+    from fluidframework_tpu_torch.obs import REGISTRY
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.qos import (
+        PLANE, CircuitBreaker, FaultSchedule, TransientFault,
+    )
+    from fluidframework_tpu_torch.service import GpuMergeSidecar
+
+    raw = route_corpus("mixed")
+    wrapped = [_wrap(s) for s in raw]
+    clock = {"t": 0.0}
+    brk = CircuitBreaker("chaos-dispatch", failure_threshold=3,
+                         reset_timeout_s=5.0, clock=lambda: clock["t"])
+    moves = []
+    inner = brk._transition
+
+    def transition(to):
+        if to != brk._state:
+            moves.append(to)
+        inner(to)
+
+    brk._transition = transition
+    sidecar = GpuMergeSidecar(
+        max_docs=ROUTES_DOCS, capacity=ROUTES_CAPACITY,
+        max_capacity=ROUTES_MAX_CAPACITY, executor="scan", breaker=brk,
+        device="cuda")
+    doc_ids = [f"chaos-{d}" for d in range(ROUTES_DOCS)]
+    for doc in doc_ids:
+        sidecar.track(doc, "d", "s")
+    before = REGISTRY.flat()
+    cuda_merge.LAUNCHES = 0
+    faults, trips = 0, []
+    schedule = FaultSchedule(OBS_CHAOS_SEED, max_per_site=1, rates={
+        "sidecar.dispatch": {"error_burst": 1.0}})
+    t0 = time.perf_counter()
+    with PLANE.while_armed(schedule):
+        for start in range(0, max(len(s) for s in wrapped), ROUTES_ROUND):
+            for d, doc in enumerate(doc_ids):
+                for msg in wrapped[d % len(raw)][start:start + ROUTES_ROUND]:
+                    sidecar.ingest(doc, msg)
+            opened = len([m for m in moves if m == "open"])
+            try:
+                sidecar.apply()
+            except TransientFault:
+                faults += 1
+            if len([m for m in moves if m == "open"]) > opened:
+                trips.append(sidecar.last_flight_dump)
+            if brk.state == "open":
+                clock["t"] += 10.0  # past the reset timeout
+        fired = list(PLANE.fired)
+    while sidecar.queued_ops:
+        sidecar.apply()
+    sidecar.sync()
+    wall = time.perf_counter() - t0
+    _check_docs(sidecar, [(doc_ids[i], raw[i]) for i in range(len(raw))])
+    if moves != ["open", "half_open", "open", "half_open", "closed"]:
+        raise AssertionError(f"breaker transitions {moves}")
+    for dump in trips:
+        if "circuit breaker 'chaos-dispatch' opened" not in dump or \
+                "chaos[sidecar.dispatch]" not in dump:
+            raise AssertionError(f"the flight dump does not name the "
+                                 f"trip: {dump[:300]}")
+    if len(trips) != 2 or sidecar.host_mode_docs():
+        raise AssertionError(f"{len(trips)} trip dumps, "
+                             f"{sidecar.host_mode_docs()} host docs")
+    delta = REGISTRY.delta(before)
+    return {"line": (
+        f"sidecar.dispatch error_burst at config14 mixed {ROUTES_DOCS} x "
+        f"{ROUTES_CAPACITY} (scan): injected {fired}, {faults} failed "
+        f"dispatches (sidecar_dispatch_faults_total "
+        f"{delta.get('sidecar_dispatch_faults_total', 0):g}); breaker "
+        f"{' -> '.join(moves)} (the clock stepped past the reset timeout "
+        f"after each trip); both "
+        f"trip dumps name the breaker and the injected fault; "
+        f"{sidecar.stats['rounds']} rounds, {len(raw)} streams == oracle "
+        f"after the retries, wall {wall:.3f} s"),
+        "launches": cuda_merge.LAUNCHES}
+
+
+def _chaos_pool() -> str:
+    """config10's viral member on a 4-shard MeshShardedPool (16 members
+    per shard at capacity 128) with defers armed at sidecar.pool_dispatch
+    and sidecar.pool_migrate: every member equals its oracle after the
+    deferred tails land, and a migration still happens."""
+    from fluidframework_tpu_torch.models.mergetree import MergeTreeClient
+    from fluidframework_tpu_torch.obs import REGISTRY
+    from fluidframework_tpu_torch.ops.host_bridge import (
+        decode_stream, encode_stream, extract_text,
+    )
+    from fluidframework_tpu_torch.parallel import make_mesh
+    from fluidframework_tpu_torch.qos import PLANE, FaultSchedule
+    from fluidframework_tpu_torch.service.gpu_sidecar import select_pool
+    from fluidframework_tpu_torch.testing import FuzzConfig, record_op_stream
+
+    kmax = 4
+    encs = [encode_stream(record_op_stream(FuzzConfig(
+        n_clients=2, n_steps=MIG_STEPS, seed=4200 + i, insert_weight=0.55,
+        remove_weight=0.25, annotate_weight=0.05, process_weight=0.15))[1])
+        for i in range(MIG_MEMBERS * kmax)]
+    devices = _shard_devices(kmax)
+    pool = select_pool(make_mesh(devices), MIG_CAPACITY, route="mesh")
+    n = MIG_MEMBERS * kmax - 1  # leaves one open row
+    streams, fulls = _prefixed(encs, n, MIG_ROUNDS, MIG_OPS)
+    pool.admit(list(range(n)), streams)
+    before = REGISTRY.flat()
+    schedule = FaultSchedule(OBS_CHAOS_SEED, rates={
+        "sidecar.pool_dispatch": {"defer": 0.3},
+        "sidecar.pool_migrate": {"defer": 0.5}})
+    t0 = time.perf_counter()
+    with PLANE.while_armed(schedule):
+        for _ in range(2 * MIG_ROUNDS):
+            _feed(streams[:1], fulls[:1], 2 * MIG_OPS)   # the viral member
+            _feed(streams[1:], fulls[1:], 1)
+            pool.dispatch_pending(streams)
+        fired = list(PLANE.fired)
+    pool.dispatch_pending(streams)  # the deferred tails land
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = REGISTRY.delta(before)
+    defers = {k: len([f for f in fired if f[0] == k])
+              for k in ("sidecar.pool_dispatch", "sidecar.pool_migrate")}
+    if not all(defers.values()) or pool.migration_count == 0:
+        raise AssertionError(f"defers {defers}, migrations "
+                             f"{pool.migration_count}")
+    fetched = pool.fetch()
+    for slot in range(n):
+        host = MergeTreeClient("oracle")
+        host.start_collaboration("oracle")
+        for msg in decode_stream(streams[slot]):
+            host.apply_msg(msg)
+        if pool.applied_upto[slot] != len(streams[slot].ops) or \
+                extract_text(fetched, streams[slot], pool.row_of[slot]) \
+                != host.get_text():
+            raise AssertionError(f"config10 member {slot} != its oracle "
+                                 "after the deferred dispatches")
+    return (f"sidecar.pool_dispatch / pool_migrate defer on config10's "
+            f"MeshShardedPool ({kmax} shards {[str(d) for d in devices]}, "
+            f"{n} members at {MIG_CAPACITY}): {2 * MIG_ROUNDS} rounds, "
+            f"deferred dispatches {defers['sidecar.pool_dispatch']}, "
+            f"deferred migrations {defers['sidecar.pool_migrate']} "
+            f"(pool_faults_total "
+            + ", ".join(f"{k.split('{')[1][:-1]} {v:g}"
+                        for k, v in sorted(delta.items())
+                        if k.startswith("pool_faults_total"))
+            + f"), {pool.dispatch_count} dispatches, "
+            f"{pool.migration_count} migration(s); all {n} members == "
+            f"oracle, wall {wall:.3f} s")
+
+
+# authored rounds after the seeding prefix: the burst fails the first
+# BURST_LENGTH dispatches, the next replays their backlog, and three
+# rounds run after the recovery
+OBS_TREE_ROUNDS = 7
+
+
+def _chaos_tree(recorded: list) -> str:
+    """The tree plane at tree-full's 1024 documents (macro) over the
+    recorded corpus cut to its seeding prefix and OBS_TREE_ROUNDS
+    authored rounds, with a one-shot error_burst armed at
+    tree_sidecar.dispatch: every document equals its cut stream's
+    EditManager replay after the retries."""
+    from fluidframework_tpu_torch.qos import (
+        PLANE, FaultSchedule, TransientFault,
+    )
+    from fluidframework_tpu_torch.qos.faults import BURST_LENGTH
+    from fluidframework_tpu_torch.service import TreeSidecar
+
+    cut = TREE_PREFIX + OBS_TREE_ROUNDS * TREE_ROUND
+    streams = [stream[:cut] for _sig, stream in recorded]
+    oracle = [_tree_replay(s) for s in streams]
+    sidecar = TreeSidecar(max_docs=TREE_DOCS, capacity=TREE_CAPACITY,
+                          max_capacity=TREE_MAX_CAPACITY, executor="macro",
+                          device="cuda")
+    doc_ids = [f"chaos-tree-{d}" for d in range(TREE_DOCS)]
+    for doc in doc_ids:
+        sidecar.track(doc, "d", "t")
+    failed, after = 0, []
+    bounds = [0] + list(range(TREE_PREFIX, cut, TREE_ROUND)) + [cut]
+    schedule = FaultSchedule(OBS_CHAOS_SEED, max_per_site=1, rates={
+        "tree_sidecar.dispatch": {"error_burst": 1.0}})
+    t0 = time.perf_counter()
+    with PLANE.while_armed(schedule):
+        for start, stop in zip(bounds, bounds[1:]):
+            for d, doc in enumerate(doc_ids):
+                for msg in streams[d % len(streams)][start:stop]:
+                    sidecar.ingest(doc, msg)
+            rounds = sidecar.stats["rounds"]
+            try:
+                sidecar.apply()
+            except TransientFault:
+                failed += 1
+                continue
+            if failed:
+                after.append(sidecar.stats["rounds"] - rounds)
+        fired = list(PLANE.fired)
+    while sidecar.queued_commits:
+        sidecar.apply()
+    sidecar.sync()
+    wall = time.perf_counter() - t0
+    if failed != BURST_LENGTH or len(after) < 4 or 0 in after:
+        raise AssertionError(f"{failed} failed tree dispatches (the burst "
+                             f"is {BURST_LENGTH}), rounds per apply after "
+                             f"them {after}: the retry and at least three "
+                             "rounds after it must each dispatch")
+    for d, doc in enumerate(doc_ids):
+        if sidecar.signature(doc, "d", "t") != oracle[d % len(streams)]:
+            raise AssertionError(f"{doc} != its stream's EditManager "
+                                 "replay after the retries")
+    return (f"tree_sidecar.dispatch error_burst at tree-full's "
+            f"{TREE_DOCS} docs (macro, streams cut to {cut} messages): "
+            f"injected {fired}, {failed} failed dispatches, then "
+            f"{len(after)} applies (the retry of the backlog and "
+            f"{len(after) - 1} rounds after it) dispatching {after} rounds, "
+            f"{sidecar.stats['rounds']} rounds in all, all {TREE_DOCS} "
+            f"docs == EditManager replay after the retries, wall {wall:.3f} s")
+
+
+def phase_obs(main_rec: dict, recorded: list) -> dict:
+    """The observability and protection hooks: config2-full with every
+    hook on (trace_ops, a heat ledger, a breaker, the device trace, the
+    sanitizer, the host profiler) under one torch.profiler trace, held to
+    the oracle and to the hooks-off run; then chaos at three seams."""
+    log("obs: the registry after the earlier phases: " + _registry_line((
+        "sidecar_", "pool_", "mesh_pool_", "tree_sidecar_", "tree_pool_",
+        "heat_", "egwalker_")))
+    t0 = time.perf_counter()
+    run = _obs_config2(main_rec)
+    obs_s = time.perf_counter() - t0
+    log(f"obs: config2-full with the hooks on (trace_ops, heat, breaker, "
+        f"FFTPU_DEVICE_TRACE=1, jitsan, ContinuousProfiler, one "
+        f"torch.profiler trace of CPU and CUDA): {run['rounds']} rounds, "
+        f"{run['real']} real ops, wall {run['wall']:.3f} s against the "
+        f"main phase's hooks-off {main_rec['wall_s']:.3f} s "
+        f"({run['wall'] / main_rec['wall_s']:.3f}x; ingest "
+        f"{run['ingest_s']:.3f} s), {run['real'] / run['wall']:.1f} ops/s; "
+        f"host profiler {run['samples']} samples, overhead_fraction "
+        f"{run['overhead']:.6f}; {len(main_rec['raw'])} streams == oracle, "
+        f"live table and served texts and signatures == the hooks-off run; "
+        f"{run['trace_line']}; registry rounds / ops / grows == the "
+        f"sidecar's; attribute_round conserved every round's ms over "
+        f"{MAIN_DOCS} documents (top {run['top']}); every message "
+        f"sidecar:pack then sidecar:settle, once per tile; jitsan launch "
+        f"signatures {run['counts']} within the ladder bounds, nvcc "
+        f"builds {run['builds']} (at most one: the library was "
+        f"{run['built']}); device half under sync debug 'error' in "
+        f"{run['guarded']} dispatches, device_trace inside the guard; "
+        f"{time.perf_counter() - t0 - run['wall']:.3f} s of checks")
+    chaos = _chaos_merge()
+    log("obs: chaos: " + chaos["line"])
+    log("obs: chaos: " + _chaos_pool())
+    log("obs: chaos: " + _chaos_tree(recorded))
+    log(f"obs: phase wall {time.perf_counter() - t0:.3f} s (config2 with "
+        f"hooks {obs_s:.3f} s)")
+    return {"launches": run["launches"] + chaos["launches"]}
+
+
+# ----------------------------------------------------------------------
+# times at the main path's shape
 
 def _time_ms(fn, reps: int, launches: int = 1) -> list:
     """CUDA-event times of ``reps`` runs, each of ``launches`` calls
@@ -2012,36 +2421,18 @@ def _time_ms(fn, reps: int, launches: int = 1) -> list:
 def _real(kind):
     """Insert, remove and annotate ops (kinds 0..2); any other kind is a
     NOOP."""
-    from fluidframework_tpu_torch.ops.segment_table import KIND_ANNOTATE
+    from fluidframework_tpu_torch.ops.window_cost import real_ops
 
-    return (kind >= 0) & (kind <= KIND_ANNOTATE)
+    return real_ops(kind)
 
 
 def _noop_share(batch) -> float:
     return float(1.0 - _real(batch.kind).float().mean())
 
 
-def _live_slot_steps(table, batch) -> int:
-    """Slot-steps this window's data needs: for every insert, remove or
-    annotate step, the document's live slots (``count``) at that step,
-    from the plain loop's own counts. NOOP steps and slots at or above
-    ``count`` do not enter a view."""
-    from fluidframework_tpu_torch.ops.merge_step import (
-        fused_step, table_to_state,
-    )
-
-    st = table_to_state(table)
-    live = 0
-    for w in range(batch.kind.shape[-1]):
-        op = {f: getattr(batch, f)[:, w:w + 1] for f in batch._fields}
-        live += int((st["count"].long() * _real(op["kind"])).sum())
-        st = fused_step(st, op)
-    return live
-
-
 def phase_time(seed: int) -> dict:
     from fluidframework_tpu_torch.ops.merge_kernel import (
-        apply_window, apply_window_plain,
+        apply_window, apply_window_plain, compiled_window,
     )
     from fluidframework_tpu_torch.testing import windows
 
@@ -2065,28 +2456,23 @@ def phase_time(seed: int) -> dict:
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
     batch = full
     plain = _time_ms(lambda: apply_window_plain(table, batch), 5)
-    ops_per_slot = step_ops_per_slot()
-    state_bytes = D * (12 * C + 3) * 4
-    op_bytes = 12 * D * W * 4
-    nbytes = 2 * state_bytes + op_bytes
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     # the work this run's data needs: the live slots of the real steps
-    live = _live_slot_steps(table, batch)
-    nops = live * ops_per_slot
-    ops_ms = nops / INT32_OPS_PER_S * 1e3
+    # (the package's reckoning, compiled_window's cost)
+    _, _, cost = compiled_window(table, batch)
+    bytes_ms = cost.nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = cost.live_ops / INT32_OPS_PER_S * 1e3
     # the plain version's count, every slot of every step
-    plain_ops_ms = D * C * W * ops_per_slot / INT32_OPS_PER_S * 1e3
-    rec.update({
-        "plain_ms": statistics.median(plain),
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-    })
+    plain_ops_ms = cost.ops / INT32_OPS_PER_S * 1e3
+    rec["plain_ms"] = statistics.median(plain)
+    rec["bound_ms"], rec["bound_by"] = cost.bound_ms(HBM_BYTES_PER_S,
+                                                     INT32_OPS_PER_S)
     log(f"times at D={D} C={C} W={W}: kernel median {rec['ms']:.4f} ms, "
         f"plain version median {rec['plain_ms']:.4f} ms (the plain torch "
         f"loop, not a yardstick); bound {rec['bound_ms']:.4f} ms by "
-        f"{rec['bound_by']} (bytes {nbytes} -> {bytes_ms:.4f} ms; int32 "
-        f"ops {nops} = {ops_per_slot}/slot-step over {live} live "
-        f"slot-steps of real steps, {live / (D * C * W):.4f} of D*C*W -> "
+        f"{rec['bound_by']} (bytes {cost.nbytes} -> {bytes_ms:.4f} ms; "
+        f"int32 ops {cost.live_ops} = {cost.ops_per_slot_step}/slot-step "
+        f"over {cost.live_slot_steps} live slot-steps of real steps, "
+        f"{cost.live_slot_steps / cost.slot_steps:.4f} of D*C*W -> "
         f"{ops_ms:.4f} ms); kernel at {rec['bound_ms'] / rec['ms']:.4f} of "
         f"the bound. Over every slot of every step (the plain version's "
         f"count): {plain_ops_ms:.4f} ms, kernel at "
@@ -2103,8 +2489,24 @@ def phase_time(seed: int) -> dict:
             f"{statistics.median(kernel):.4f} ms per launch (5 runs of 10 "
             f"back-to-back launches: "
             f"{[round(t, 4) for t in kernel]}), NOOP share of the batch "
-            f"{_noop_share(batch):.4f}")
+            f"{_noop_share(batch):.4f}; "
+            + _bound_line(compiled_window(table, batch)[2],
+                          statistics.median(kernel)))
     return rec
+
+
+def _bound_line(cost, ms=None) -> str:
+    """A window's bound over its live slot-steps and over every slot, from
+    the package's reckoning, beside the kernel's time ``ms``."""
+    live_ms, live_by = cost.bound_ms(HBM_BYTES_PER_S, INT32_OPS_PER_S)
+    all_ms, all_by = cost.bound_ms(HBM_BYTES_PER_S, INT32_OPS_PER_S,
+                                   live=False)
+    at = "" if ms is None else (f", kernel at {live_ms / ms:.4f} / "
+                                f"{all_ms / ms:.4f} of them")
+    return (f"bound {live_ms:.4f} ms by {live_by} over "
+            f"{cost.live_slot_steps} live slot-steps "
+            f"({cost.live_slot_steps / cost.slot_steps:.4f} of D*C*W), "
+            f"{all_ms:.4f} ms by {all_by} over every slot{at}")
 
 
 def main() -> int:
@@ -2150,7 +2552,7 @@ def main() -> int:
         mark("routes")
         phase_recovery(args.seed)
         mark("recovery")
-        phase_tree()
+        recorded = phase_tree()
         mark("tree")
         pool_rec = phase_pool(args.seed)
         mark("pool")
@@ -2160,6 +2562,8 @@ def main() -> int:
         mark("donation")
         prewarm_rec = phase_prewarm(main_rec["raw"])
         mark("prewarm")
+        obs_rec = phase_obs(main_rec, recorded)
+        mark("obs")
         time_rec = phase_time(args.seed)
         mark("times")
         log("phase walls: " + ", ".join(
@@ -2170,7 +2574,8 @@ def main() -> int:
         paths = {"main path": main_rec["launches"],
                  "matrix": matrix_rec["launches"],
                  "donated runs": donation_rec["launches"],
-                 "prewarmed rounds": prewarm_rec["launches"]}
+                 "prewarmed rounds": prewarm_rec["launches"],
+                 "obs runs": obs_rec["launches"]}
     except Exception:  # noqa: BLE001 - report any failed phase, exit 1
         traceback.print_exc()
         log("FAIL")

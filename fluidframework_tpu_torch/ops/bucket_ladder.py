@@ -1,4 +1,5 @@
-"""The (docs, window, capacity) shape ladder — ONE definition.
+"""The (docs, window, capacity) shape ladder — ONE definition — and the
+per-root bounds on the launch signatures it allows (``ladder_bounds``).
 
 ``apply_window`` / ``apply_window_chunked`` compile per input shape
 (20-40s each on the real chip), so every dispatch pads its window to a
@@ -64,8 +65,73 @@ class BucketLadder:
         growth inside one chunk: each op can add 2 slots and
         compaction only runs between chunks, so chunk=256 against a
         small pool would overflow on history alone even when the
-        live set fits. NOTE: ``shapecheck.ladder_bounds`` restates
-        this arithmetic import-free by design (the linter imports
-        nothing it lints); the jitsan compile-count differential
-        pins the two together."""
+        live set fits. ``ladder_bounds`` reads it for the pools'
+        replay windows."""
         return max(16, min(256, capacity // 4))
+
+
+def ladder_bounds(window_floor: int, max_bucket: int, capacity: int,
+                  max_capacity: int, executor: str = "scan",
+                  donate: bool = False,
+                  pool_capacity: int | None = None,
+                  pool_rows: int = 1) -> dict[str, int]:
+    """Per-root bounds on the distinct launch signatures a sidecar of
+    this ladder (one ``max_docs``) may reach when every dispatch rides
+    the ladder — the port's form of the reference's
+    ``shapecheck.ladder_bounds``, which ``testing/jitsan.py``'s counts
+    must stay within. Eager torch compiles nothing per shape, so a
+    "signature" is a distinct launch shape per root: the window kernel's
+    (docs, capacity, window), the macro-step routes'
+    (docs, capacity, K, window), ``compact``'s and ``pad_capacity``'s
+    shapes, the mesh pool's (shards, rows, capacity, window) and its row
+    moves' (shards, rows, capacity). One more than the bound means an
+    unladdered call site reached the device with a shape the ladder
+    does not hold.
+
+    ``pool_capacity`` adds a doc-sharded pool's roots: ``pool_rows`` is
+    the largest per-shard row bucket the run may reach, and its windows
+    are the ladder's plus the replay chunk when that lies outside it."""
+    ladder = BucketLadder(window_floor, max_bucket)
+    n_buckets = len(ladder.window_buckets())
+    n_rungs = len(BucketLadder.capacity_rungs(capacity, max_capacity))
+    shapes = n_buckets * n_rungs
+    route_roots = {"scan": ("apply_window",), "chunked": ("chunked",),
+                   "egwalker": ("egwalker", "apply_window")}[executor]
+    # the donating twin rides the route's own root (an egwalker suffix
+    # always dispatches plain)
+    donating = {"scan": "apply_window", "chunked": "chunked",
+                "egwalker": "egwalker"}[executor]
+    bounds = {}
+    for root in ("apply_window", "chunked", "egwalker"):
+        bounds[root] = shapes if root in route_roots else 0
+        bounds[root + "_pingpong"] = (shapes if donate and root == donating
+                                      else 0)
+    bounds["compact"] = n_rungs
+    bounds["pad_capacity"] = n_rungs - 1
+    if pool_capacity is not None:
+        rows = len(BucketLadder.capacity_rungs(1, max(pool_rows, 1)))
+        n_windows = n_buckets
+        chunk = BucketLadder.replay_chunk(pool_capacity)
+        if not window_floor <= chunk <= max_bucket:
+            n_windows += 1
+        bounds["mesh_pool"] = rows * n_windows
+        if executor in ("chunked", "egwalker"):
+            # a one-shard pool follows the route CHUNKED (an egwalker
+            # pool too: its dispatches are full-history replays)
+            bounds["chunked"] += rows * n_windows
+        bounds["mesh_move"] = rows
+        bounds["compact"] += rows
+    return bounds
+
+
+def tree_ladder_bounds(capacity: int, max_capacity: int,
+                       pool_rows: int | None = None) -> dict[str, int]:
+    """The tree plane's counterpart of ``ladder_bounds``: the tree window
+    uploads only its real steps (``tree_apply.window_extent``), so its
+    launch signature is (route, docs, capacity) — one per capacity rung
+    of the primary slab, plus one per pow2 row bucket of the pooled tier
+    up to ``pool_rows`` — and the pad step one per rung transition."""
+    n_rungs = len(BucketLadder.capacity_rungs(capacity, max_capacity))
+    rows = (0 if pool_rows is None
+            else len(BucketLadder.capacity_rungs(1, max(pool_rows, 1))))
+    return {"tree_window": n_rungs + rows, "tree_pad": n_rungs - 1}

@@ -9,7 +9,8 @@ package (keyed by a hash of the source and the flags), and loaded with
 
 ``apply_window_cuda`` launches the kernel on the current CUDA stream or
 raises; it never falls back to the plain version. ``LAUNCHES`` counts
-the launches this process made.
+the launches this process made, ``BUILDS`` the ``nvcc`` builds per
+library (source hash).
 """
 from __future__ import annotations
 
@@ -37,6 +38,9 @@ NVCC_FLAGS = (
 
 # launches of the kernel made by apply_window_cuda in this process
 LAUNCHES = 0
+# nvcc builds this process made, per library file (named by the hash of
+# the source and the flags): at most one each
+BUILDS: dict[str, int] = {}
 
 _lock = threading.Lock()
 _lib = None
@@ -89,6 +93,7 @@ def build() -> Path:
     log = compile_source(SOURCE, tmp)
     os.replace(tmp, path)  # atomic: a concurrent build sees all or none
     BUILD_LOG = log
+    BUILDS[path.name] = BUILDS.get(path.name, 0) + 1
     return path
 
 

@@ -53,6 +53,7 @@ from .merge_chunk import (
     _rank_replay,
     _rows,
     _take,
+    macro_steps,
     run_macro_steps,
 )
 from .merge_kernel import apply_window
@@ -493,3 +494,19 @@ def apply_batch_egwalker(table: SegmentTable, batch: OpBatch,
         table = apply_window(
             table, batch_from_numpy(program["suffix"], table.device))
     return table
+
+
+def compiled_window(table: SegmentTable, prefix: dict,
+                    K: int = EG_K) -> tuple:
+    """The counterpart of the reference's ``compiled_window`` for the
+    walker: ``(fn, args, cost)`` where ``fn(*args)`` is exactly the
+    dispatch ``apply_window_egwalker`` makes at this ``K`` and ``cost``
+    is the ``WindowCost`` (``ops/window_cost.py``) of the prefix's op
+    batch (the merge_chunk convention)."""
+    from .window_cost import window_cost
+
+    batch = batch_from_numpy({f: prefix[f] for f in OpBatch._fields},
+                             table.device)
+    steps = macro_steps(prefix["chunk_start"], K)
+    return (apply_window_egwalker, (table, prefix, K, steps),
+            window_cost(table, batch))

@@ -80,7 +80,10 @@ _NOT_REMOVED = int(NOT_REMOVED)
 
 
 def _host(a) -> np.ndarray:
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    if not isinstance(a, torch.Tensor):
+        return np.asarray(a)
+    # the sidecars compile host numpy; a tensor comes from a direct caller
+    return a.cpu().numpy()  # synccheck: disable=cpu,numpy not the loop's
 
 
 # ======================================================================
@@ -798,3 +801,20 @@ def apply_window_chunked_pingpong(dead: SegmentTable | None,
     check_donated(dead, table, chunked)
     return copy_into(dead, apply_window_chunked(table, chunked, K=K,
                                                 steps=steps))
+
+
+def compiled_window(table: SegmentTable, chunked: dict,
+                    K: int = CHUNK_K) -> tuple:
+    """The counterpart of the reference's ``compiled_window`` for the
+    chunked route: ``(fn, args, cost)`` where ``fn(*args)`` is exactly
+    the dispatch ``apply_window_chunked`` makes at this ``K`` (the
+    macro-step count counted on the host, as the sidecar passes it) and
+    ``cost`` is the window's ``WindowCost`` (``ops/window_cost.py``) on
+    the program's op batch — the same reckoning every route reads."""
+    from .window_cost import window_cost
+
+    batch = OpBatch(**program_to_device(
+        {f: chunked[f] for f in OpBatch._fields}, table.device))
+    steps = macro_steps(chunked["chunk_start"], K)
+    return (apply_window_chunked, (table, chunked, K, steps),
+            window_cost(table, batch))

@@ -15,6 +15,8 @@ is across documents.
   ``apply_window``; its output is written into a retired table.
 - ``pad_capacity`` / ``compact``: plain torch (the reference has them
   as XLA programs, not Pallas kernels).
+- ``compiled_window``: the exact callable ``apply_window`` dispatches
+  for a table, with its arguments and the window's cost reckoning.
 """
 from __future__ import annotations
 
@@ -63,6 +65,26 @@ def apply_window(table: SegmentTable, batch: OpBatch) -> SegmentTable:
     from .cuda_merge import apply_window_cuda
 
     return apply_window_cuda(table, batch)
+
+
+def compiled_window(table: SegmentTable, batch: OpBatch) -> tuple:
+    """The counterpart of the reference's ``compiled_window()``: the
+    exact callable ``apply_window`` dispatches for ``table`` (the Hopper
+    window kernel ``cuda_merge.apply_window_cuda`` on a CUDA table, the
+    plain loop ``apply_window_plain`` on the CPU), its positional
+    arguments, and the window's ``WindowCost`` (``ops/window_cost.py``:
+    int32 operations and bytes from shapes, over every slot-step and
+    over the live slot-steps of ``batch``) — ``(fn, args, cost)``, so
+    ``fn(*args)`` is the dispatch a caller instruments or times."""
+    from .window_cost import window_cost
+
+    if table.device.type == "cuda":
+        from .cuda_merge import apply_window_cuda as fn
+    elif table.device.type == "cpu":
+        fn = apply_window_plain
+    else:
+        raise ValueError(f"no window apply for device {table.device}")
+    return fn, (table, batch), window_cost(table, batch)
 
 
 def apply_window_pingpong(dead: SegmentTable, table: SegmentTable,

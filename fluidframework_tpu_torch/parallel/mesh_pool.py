@@ -29,6 +29,14 @@ route-selection point between them.
   (``ops/shard_moves.migrate_rows``) that consumes the pre-move table:
   with every watermark at its stream head and nothing in flight, moving
   a row commutes with the op order.
+- The reference's observability and chaos hooks at the same points: the
+  ``mesh_pool_*`` / ``pool_faults_total`` families, the
+  ``sidecar.pool_dispatch`` and ``sidecar.pool_migrate`` sites (a
+  deferred dispatch leaves the tails past the watermark for the next
+  settle, a deferred migration skips one move: both exact by
+  construction), the ``pool:migrate`` hop on ``migration_traces`` and
+  an optional ``FleetTimeline`` (``timeline=``) that records each
+  migration.
 
 Rows not owned by a member are GARBAGE (a migration's vacated row keeps
 a stale copy): count / overflow / text are read only through ``row_of``,
@@ -43,7 +51,9 @@ import numpy as np
 
 from ..convert import batch_from_numpy, program_to_device, \
     sharded_table_to_numpy
+from ..obs import metrics as obs_metrics
 from ..obs.heat import HeatLedger
+from ..obs.trace import stamp as _trace_stamp
 from ..ops.bucket_ladder import BucketLadder
 from ..ops.event_graph import validate_executor
 from ..ops.host_bridge import coalesce_noops, pack_rows, replay_chunked
@@ -62,11 +72,46 @@ from ..ops.segment_table import (
     make_table,
 )
 from ..ops.shard_moves import migrate_rows
+from ..qos.faults import KIND_DEFER, PLANE as _CHAOS
 from .mesh import DOC_AXIS, DeviceMesh, doc_devices
 
 # the migration heat's EWMA decay per dispatching settle (the
 # reference's default)
 HEAT_DECAY = 0.5
+
+# chaos seams, shared by NAME with the seq tier (gpu_sidecar registers
+# the same sites)
+_SITE_POOL_DISPATCH = _CHAOS.site("sidecar.pool_dispatch", (KIND_DEFER,))
+_SITE_POOL_MIGRATE = _CHAOS.site("sidecar.pool_migrate", (KIND_DEFER,))
+
+# Registry families, the reference's (process aggregates across every
+# pool; exact per-instance counts stay on the pool). Everything bumped
+# from dispatch_pending is host-side only: it runs inside the sidecar's
+# _settle boundary.
+_M_MEMBERS = obs_metrics.REGISTRY.gauge(
+    "mesh_pool_members", "pooled documents per shard",
+    labelnames=("shard",))
+_M_WATERMARK = obs_metrics.REGISTRY.gauge(
+    "mesh_pool_watermark_ops", "sum of member stream watermarks")
+_M_DISPATCH = obs_metrics.REGISTRY.counter(
+    "mesh_pool_dispatches_total", "incremental mesh-pool dispatches")
+_M_DEPTH = obs_metrics.REGISTRY.gauge(
+    "mesh_pool_dispatch_depth", "ops in the last mesh-pool dispatch")
+_M_MIGRATIONS = obs_metrics.REGISTRY.counter(
+    "mesh_pool_migrations_total",
+    "hot documents moved between shards at settle boundaries")
+_M_IMBALANCE = obs_metrics.REGISTRY.gauge(
+    "mesh_pool_shard_imbalance",
+    "hottest-shard heat over mean shard heat (1.0 = balanced)")
+_M_POOL_FAULTS = obs_metrics.REGISTRY.counter(
+    "pool_faults_total",
+    "pool operations deferred or retried under a transient fault "
+    "(shared by NAME across the seq and mesh tiers, like the "
+    "sidecar.pool_* chaos sites)", labelnames=("tier", "op"))
+_M_ROUTE_FALLBACK = obs_metrics.REGISTRY.counter(
+    "mesh_pool_route_fallback_total",
+    "chunked-route requests served by the scan window body on a "
+    "multi-shard mesh")
 
 
 def apply_window_mesh_sharded(table: ShardedTable, batch,
@@ -109,7 +154,8 @@ class MeshShardedPool:
 
     def __init__(self, mesh: DeviceMesh, per_doc_capacity: int,
                  executor: Optional[str] = None,
-                 doc_axis: str = DOC_AXIS):
+                 doc_axis: str = DOC_AXIS,
+                 timeline=None):
         if doc_axis not in mesh.axis_names:
             raise ValueError(
                 f"mesh pool needs a {doc_axis!r} mesh axis "
@@ -156,7 +202,13 @@ class MeshShardedPool:
         self.heat = HeatLedger(max_keys=1 << 16, decay=HEAT_DECAY)
         self._table: Optional[ShardedTable] = None
         self.dispatch_count = 0
+        self.last_dispatch_depth = 0
         self.migration_count = 0
+        # a migration is a settle-boundary EVENT, not a per-op hop: each
+        # stamps pool:migrate on the pool's own bounded trace list and,
+        # when a FleetTimeline is attached, records a "migration" there
+        self.timeline = timeline
+        self.migration_traces: list = []
 
     # -- bookkeeping ---------------------------------------------------
 
@@ -181,6 +233,10 @@ class MeshShardedPool:
             for r, slot in enumerate(members):
                 self.row_of[slot] = shard * rows + r
 
+    def _set_member_gauges(self) -> None:
+        for shard, members in enumerate(self.shard_members):
+            _M_MEMBERS.labels(shard=str(shard)).set(len(members))
+
     def _fresh_table(self) -> ShardedTable:
         return ShardedTable([make_table(self.rows_per_shard, self.capacity,
                                         dev) for dev in self.devices])
@@ -191,6 +247,7 @@ class MeshShardedPool:
         if self._route_warned:
             return
         self._route_warned = True
+        _M_ROUTE_FALLBACK.inc()
         print(
             f"fftpu: MeshShardedPool: the {self.executor} macro-step does "
             "not ride the doc-sharded dispatch; using the scan window "
@@ -222,6 +279,8 @@ class MeshShardedPool:
         if not self.row_of:
             self._table = None
             self.applied_upto = {}
+            self._set_member_gauges()
+            _M_WATERMARK.set(0)
             return
         self._table = replay_chunked(
             self._apply, self._fresh_table(),
@@ -230,6 +289,8 @@ class MeshShardedPool:
         )
         self.applied_upto = {
             slot: len(streams[slot].ops) for slot in self.row_of}
+        self._set_member_gauges()
+        _M_WATERMARK.set(sum(self.applied_upto.values()))
 
     def admit(self, slots: list, streams) -> list:
         """Admit sidecar slots onto the least-occupied shards; returns the
@@ -273,6 +334,12 @@ class MeshShardedPool:
         migrate one hot document (``_maybe_migrate``)."""
         if self._table is None:
             return []
+        if _SITE_POOL_DISPATCH.fire(tier="mesh") is not None:
+            # deferred: tails stay past the watermark and apply whole at
+            # the next settle — exactly once by construction (the heat
+            # waits too: a lagging dispatch must not decay it)
+            _M_POOL_FAULTS.labels(tier="mesh", op="dispatch").inc()
+            return []
         pending, depths, upto = {}, {}, {}
         for slot, row in self.row_of.items():
             tail = streams[slot].ops[self.applied_upto.get(slot, 0):]
@@ -287,10 +354,15 @@ class MeshShardedPool:
         if not pending:
             return []
         self.heat.ewma_tick(self.row_of, depths)
+        depth = sum(len(ops) for ops in pending.values())
         self.dispatch_count += 1
+        self.last_dispatch_depth = depth
+        _M_DISPATCH.inc()
+        _M_DEPTH.set(depth)
         self._table = self._apply(self._table,
                                   pack_rows(self._table.docs, pending))
         self.applied_upto.update(upto)
+        _M_WATERMARK.set(sum(self.applied_upto.values()))
         overflowed = self.overflowed_slots()
         if not overflowed:
             # migration only on a clean settle: an overflow hands control
@@ -314,8 +386,15 @@ class MeshShardedPool:
         spot). Deterministic: ties break on shard index, then slot."""
         if self.n_shards < 2 or self._table is None:
             return
+        if _SITE_POOL_MIGRATE.fire() is not None:
+            # deferred: migration is opportunistic — the heat persists,
+            # so a hot shard offers the same move at the next settle
+            _M_POOL_FAULTS.labels(tier="mesh", op="migrate").inc()
+            return
         loads = self.shard_loads()
         hot = max(range(self.n_shards), key=lambda i: (loads[i], -i))
+        mean = sum(loads) / self.n_shards
+        _M_IMBALANCE.set(loads[hot] / mean if mean > 0 else 1.0)
         if len(self.shard_members[hot]) < 2:
             return
         # coldest shard with a free local row (a full shard cannot
@@ -354,6 +433,13 @@ class MeshShardedPool:
         # order; the pre-move table is consumed
         self._table = migrate_rows(self._table, perm)
         self.migration_count += 1
+        _M_MIGRATIONS.inc()
+        _trace_stamp(self.migration_traces, "pool", "migrate")
+        del self.migration_traces[:-64]  # bounded, newest kept
+        if self.timeline is not None:
+            self.timeline.record("migration", node=f"shard-{src}",
+                                 slot=slot, src=src, dst=dst)
+        self._set_member_gauges()
 
     # -- prewarm + reads -------------------------------------------------
 

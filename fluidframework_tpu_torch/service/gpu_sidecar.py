@@ -50,13 +50,18 @@ import dataclasses
 import os
 import sys
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..convert import batch_from_numpy, program_to_device
 from ..models.mergetree import MergeTreeClient
+from ..obs import metrics as obs_metrics
+from ..obs.flight_recorder import FlightRecorder
+from ..obs.heat import HeatLedger, attribute_round
+from ..obs.profiler import device_trace
+from ..obs.trace import stamp as trace_stamp
 from ..ops.bucket_ladder import BucketLadder
 from ..ops.host_bridge import (
     OP_FIELDS,
@@ -100,6 +105,82 @@ from ..ops.segment_table import (
 from ..parallel.mesh import DOC_AXIS, DeviceMesh
 from ..parallel.seq_shard import SEQ_AXIS, apply_window_seq_sharded
 from ..protocol.messages import MessageType, SequencedMessage
+from ..qos.faults import (
+    KIND_DEFER,
+    KIND_ERROR,
+    KIND_ERROR_BURST,
+    PLANE as _CHAOS,
+)
+
+# Registry families, the reference's names, kinds and labels (process
+# aggregates across every sidecar and pool; exact per-instance counts stay
+# on the owning object: ``grow_count``, ``stats``). Everything bumped
+# from inside the dispatch loop is host-side only: a registry inc and a
+# flight-recorder record never touch the device.
+_M_ROUNDS = obs_metrics.REGISTRY.counter(
+    "sidecar_rounds_total", "dispatch rounds flushed")
+_M_OPS = obs_metrics.REGISTRY.counter(
+    "sidecar_real_ops_total", "non-noop ops applied on device")
+_M_GROW = obs_metrics.REGISTRY.counter(
+    "sidecar_grow_total", "capacity-ladder regrows")
+_M_EVICT = obs_metrics.REGISTRY.counter(
+    "sidecar_evict_total", "documents evicted to host replicas")
+_M_POOL_ADMIT = obs_metrics.REGISTRY.counter(
+    "sidecar_pool_admit_total", "documents admitted to the seq pool")
+_M_RECOVER = obs_metrics.REGISTRY.counter(
+    "sidecar_overflow_recoveries_total",
+    "settle boundaries that found the overflow flag set")
+_M_PACK_MS = obs_metrics.REGISTRY.histogram(
+    "sidecar_pack_ms", "host half of a round (pack + compile)")
+_M_SETTLE_MS = obs_metrics.REGISTRY.histogram(
+    "sidecar_settle_ms", "device-wait at the settle boundary")
+_M_TRACKED = obs_metrics.REGISTRY.gauge(
+    "sidecar_tracked_channels", "channels on the device batch path")
+_M_POOLED = obs_metrics.REGISTRY.gauge(
+    "sidecar_pooled_docs", "documents on the seq-sharded pool tier")
+_M_HOSTED = obs_metrics.REGISTRY.gauge(
+    "sidecar_host_docs", "documents evicted to host replicas")
+_M_CAPACITY = obs_metrics.REGISTRY.gauge(
+    "sidecar_capacity", "current primary slab capacity (slots/doc)")
+_M_POOL_DISPATCH = obs_metrics.REGISTRY.counter(
+    "pool_dispatches_total", "seq-pool incremental dispatches")
+_M_POOL_DEPTH = obs_metrics.REGISTRY.gauge(
+    "pool_dispatch_depth", "ops in the last pool dispatch")
+_M_POOL_WATERMARK = obs_metrics.REGISTRY.gauge(
+    "pool_watermark_ops", "sum of member stream watermarks")
+_M_POOL_MEMBERS = obs_metrics.REGISTRY.gauge(
+    "pool_members", "documents admitted to the pool")
+_M_POOL_ROUTE_FALLBACK = obs_metrics.REGISTRY.counter(
+    "pool_route_fallback_total",
+    "SeqShardedPool chunked-route requests served by the "
+    "scan-collective executor on a real seq mesh")
+_M_DUP_DROPS = obs_metrics.REGISTRY.counter(
+    "sidecar_duplicate_drops_total",
+    "already-ingested sequenced messages dropped by the per-document "
+    "sequence-number check (at-least-once delivery upstream)")
+_M_SPAN_SPLITS = obs_metrics.REGISTRY.counter(
+    "egwalker_span_splits_total",
+    "would-be span breaks the egwalker compiler absorbed by event "
+    "splitting (each one is a saved walker launch)")
+_M_DISPATCH_FAULTS = obs_metrics.REGISTRY.counter(
+    "sidecar_dispatch_faults_total",
+    "device dispatch rounds that failed transiently before mutating "
+    "anything (ops stay queued; the next apply retries exactly)")
+_M_POOL_FAULTS = obs_metrics.REGISTRY.counter(
+    "pool_faults_total",
+    "pool operations deferred or retried under a transient fault "
+    "(shared by NAME across the seq and mesh tiers, like the "
+    "sidecar.pool_* chaos sites)", labelnames=("tier", "op"))
+
+# chaos seams, the reference's sites: the dispatch site fires BEFORE the
+# round mutates anything (queues intact, so a retry is exact); the pool
+# sites model a lagging pool dispatch, a deferred migration and a
+# transiently failing admission
+_SITE_DISPATCH = _CHAOS.site(
+    "sidecar.dispatch", (KIND_ERROR, KIND_ERROR_BURST))
+_SITE_POOL_DISPATCH = _CHAOS.site("sidecar.pool_dispatch", (KIND_DEFER,))
+_SITE_POOL_ADMIT = _CHAOS.site("sidecar.pool_admit", (KIND_ERROR,))
+_SITE_POOL_MIGRATE = _CHAOS.site("sidecar.pool_migrate", (KIND_DEFER,))
 
 
 def default_executor() -> str:
@@ -191,6 +272,7 @@ class SeqShardedPool:
         self.applied_upto: dict[int, int] = {}
         self._table: Optional[SegmentTable] = None
         self.dispatch_count = 0
+        self.last_dispatch_depth = 0
 
     def _bucket(self) -> int:
         b = 1
@@ -202,6 +284,7 @@ class SeqShardedPool:
         if self._route_warned:
             return
         self._route_warned = True
+        _M_POOL_ROUTE_FALLBACK.inc()
         print(
             f"fftpu: SeqShardedPool: the {self.executor} macro-step does "
             "not decompose over a slot-sharded axis; using the "
@@ -238,6 +321,8 @@ class SeqShardedPool:
         )
         self.applied_upto = {
             slot: len(streams[slot].ops) for slot in self.members}
+        _M_POOL_MEMBERS.set(len(self.members))
+        _M_POOL_WATERMARK.set(sum(self.applied_upto.values()))
 
     def admit(self, slots: list, streams) -> list:
         """Admit sidecar slots; returns the slots that FAILED (past even
@@ -278,6 +363,11 @@ class SeqShardedPool:
         exactly-once after any mix of rebuilds and dispatches."""
         if self._table is None:
             return []
+        if _SITE_POOL_DISPATCH.fire(tier="seq") is not None:
+            # deferred: tails stay past the watermark and apply whole at
+            # the next settle — exactly once by construction
+            _M_POOL_FAULTS.labels(tier="seq", op="dispatch").inc()
+            return []
         pending, upto = {}, {}
         for slot, row in self.row_of.items():
             tail = streams[slot].ops[self.applied_upto.get(slot, 0):]
@@ -286,10 +376,15 @@ class SeqShardedPool:
                 upto[slot] = len(streams[slot].ops)
         if not pending:
             return []
+        depth = sum(len(ops) for ops in pending.values())
         self.dispatch_count += 1
+        self.last_dispatch_depth = depth
+        _M_POOL_DISPATCH.inc()
+        _M_POOL_DEPTH.set(depth)
         self._table = self._apply(self._table,
                                   pack_rows(self._table.docs, pending))
         self.applied_upto.update(upto)
+        _M_POOL_WATERMARK.set(sum(self.applied_upto.values()))
         return self.overflowed_slots()
 
     def prewarm(self) -> float:
@@ -402,6 +497,28 @@ class GpuMergeSidecar:
     ``donate`` (None: ``default_donate``) turns the donated double
     buffer on: each round's output is written into the table retired
     two rounds ago (the pools keep their own dispatch).
+
+    The observability and protection hooks are the reference's, at the
+    same points of the round; all of them are host-side and none reads
+    the device outside ``_settle``:
+
+    - the registry families (``sidecar_*``, ``pool_*``) and a
+      ``FlightRecorder(256, name="sidecar")`` (``flight``) record every
+      round, settle and recovery; an overflow recovery or a breaker
+      trip dumps it (``last_flight_dump``);
+    - ``trace_ops`` (None: ``FFTPU_SIDECAR_TRACE=0|1``, a typo raises
+      ``ValueError``; default off) stamps ``sidecar:pack`` and
+      ``sidecar:settle`` on every ingested message's ``traces``;
+    - ``breaker`` (a ``qos.CircuitBreaker``) wraps ``apply``: an open
+      breaker leaves the ops queued and ``apply`` returns 0;
+    - the chaos sites ``sidecar.dispatch`` / ``sidecar.pool_dispatch``
+      / ``sidecar.pool_admit`` fire before the round mutates anything,
+      so a retry is exact;
+    - ``heat`` (a ``HeatLedger``) is charged at ``_settle`` with each
+      round's wall-ms split over its documents by ops applied
+      (``attribute_round``); ``attr_clock`` is the host clock it reads;
+    - ``device_trace`` (``FFTPU_DEVICE_TRACE=1``) names the device
+      half of every dispatch ``sidecar:dispatch:r{n}``.
     """
 
     def __init__(self, max_docs: int = 1024, capacity: int = 1024,
@@ -412,7 +529,11 @@ class GpuMergeSidecar:
                  pipeline: bool = True,
                  donate: Optional[bool] = None,
                  ladder: Optional[BucketLadder] = None,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 trace_ops: Optional[bool] = None,
+                 breaker=None,
+                 heat: Optional[HeatLedger] = None,
+                 attr_clock: Optional[Callable[[], float]] = None):
         validate_executor(executor, "executor")
         self.executor = executor or default_executor()
         self.device = torch.device(device)
@@ -420,6 +541,43 @@ class GpuMergeSidecar:
             raise RuntimeError(
                 "GpuMergeSidecar needs a CUDA device; pass device='cpu' "
                 "to run the plain version on the CPU")
+        if trace_ops is not None:
+            self.trace_ops = trace_ops
+        else:
+            env_trace = os.environ.get("FFTPU_SIDECAR_TRACE")
+            if env_trace and env_trace not in ("0", "1"):
+                raise ValueError(
+                    f"FFTPU_SIDECAR_TRACE={env_trace!r}: expected '0' or "
+                    "'1'")
+            self.trace_ops = env_trace == "1"
+        # messages ingested since the last dispatch / packed into the
+        # in-flight round (trace_ops bookkeeping; cleared every round)
+        self._round_msgs: list[SequencedMessage] = []
+        self._inflight_msgs: list[SequencedMessage] = []
+        # the dispatch loop's last rounds, host-side events only
+        self.flight = FlightRecorder(256, name="sidecar")
+        self.last_flight_dump: Optional[str] = None
+        # an open breaker leaves the ops queued (queued_ops grows); its
+        # trip dumps this sidecar's flight recorder
+        self.breaker = breaker
+        if breaker is not None and breaker.on_open is None:
+            def _dump_on_open(b) -> None:
+                self.last_flight_dump = self.flight.dump_to(
+                    reason=f"circuit breaker {b.name!r} opened "
+                           f"(last error: {b.last_error!r})")
+            breaker.on_open = _dump_on_open
+        # device-time attribution: counts captured at pack time, charged
+        # at the settle boundary from a host clock
+        self.heat = heat
+        self._attr_clock = (attr_clock if attr_clock is not None
+                            else time.perf_counter)
+        self._attr_counts: dict[str, int] = {}
+        self._attr_t0 = 0.0
+        self._slot_doc: dict[int, str] = {}
+        if os.environ.get("FFTPU_SANITIZE") == "1":
+            from ..testing import jitsan
+
+            jitsan.install_from_env()
         self.donate = (donate if donate is not None
                        else default_donate())
         # pool tier: past the ladder top, documents move to a pool on the
@@ -475,6 +633,7 @@ class GpuMergeSidecar:
         self.stats = {"pack_s": 0.0, "settle_s": 0.0, "rounds": 0,
                       "macro_steps": 0, "span_splits": 0,
                       "pool_s": 0.0, "admit_s": 0.0}
+        _M_CAPACITY.set(self.capacity)
 
     # ------------------------------------------------------------------
     # registration + ingest
@@ -488,11 +647,13 @@ class GpuMergeSidecar:
             raise RuntimeError("sidecar document capacity exhausted")
         slot = len(self._streams)
         self._slots[key] = slot
+        self._slot_doc[slot] = document_id
         self._doc_slots.setdefault(document_id, []).append(
             (slot, datastore_id, channel_id)
         )
         self._streams.append(DocStream())
         self._queued.append([])
+        _M_TRACKED.set(len(self._streams))
         return slot
 
     def subscribe(self, server, document_id: str, datastore_id: str,
@@ -517,8 +678,17 @@ class GpuMergeSidecar:
         upstream)."""
         last = self._last_ingested.get(document_id, 0)
         if msg.sequence_number <= last:
+            _M_DUP_DROPS.inc()
             return
         self._last_ingested[document_id] = msg.sequence_number
+        if self.trace_ops and any(
+            slot not in self._host
+            for slot, _, _ in self._doc_slots.get(document_id, ())
+        ):
+            # the pack and settle hops of the round that carries it stamp
+            # this object later (dataclasses.replace below shares the
+            # traces list); fully evicted documents never reach a round
+            self._round_msgs.append(msg)
         for slot, ds_id, ch_id in self._doc_slots.get(document_id, ()):
             stream = self._streams[slot]
             envelope = msg.contents if isinstance(msg.contents, dict) else {}
@@ -574,7 +744,18 @@ class GpuMergeSidecar:
         ``pipeline`` is off."""
         if not self._queued or self.queued_ops == 0:
             return 0
-        real = self._dispatch()
+        if self.breaker is not None:
+            if not self.breaker.allow():
+                # open (or out of probes): the ops stay queued
+                return 0
+            try:
+                real = self._dispatch()
+            except Exception as e:  # noqa: BLE001 - the breaker records all
+                self.breaker.record_failure(e)
+                raise
+            self.breaker.record_success()
+        else:
+            real = self._dispatch()
         self._applies += 1
         if self._applies % self._compact_every == 0:
             self._table = compact(self._table)
@@ -695,11 +876,29 @@ class GpuMergeSidecar:
         return table
 
     def _dispatch(self) -> int:
+        # chaos seam, BEFORE any mutation: the queues are intact, so the
+        # raised transient is exactly a failed device dispatch and the
+        # next apply() retries the identical round
+        fault = _SITE_DISPATCH.fire(queued=self.queued_ops)
+        if fault is not None:
+            _M_DISPATCH_FAULTS.inc()
+            raise _SITE_DISPATCH.transient(fault)
         t0 = time.perf_counter()
+        attr_t0 = self._attr_clock() if self.heat is not None else 0.0
         # HOST HALF — runs while the device still computes the previous
         # round: coalesce noop runs (safe: the queue is consumed whole),
         # pad the window to a ladder rung, compile the route's program
         packed = [coalesce_noops(q) for q in self._queued]
+        attr_counts: dict[str, int] = {}
+        if self.heat is not None:
+            # per-document real-op counts off the pack (host ints; before
+            # the pool tier takes its slots out of the window, so pooled
+            # documents attribute too)
+            for slot, ops in enumerate(packed):
+                n = sum(1 for op in ops if op["kind"] != KIND_NOOP)
+                if n and slot in self._slot_doc:
+                    doc = self._slot_doc[slot]
+                    attr_counts[doc] = attr_counts.get(doc, 0) + n
         pool_real = 0
         if self._pool is not None:
             # pooled docs dispatch from their canonical-stream tails at
@@ -731,20 +930,46 @@ class GpuMergeSidecar:
         )
         for queue in self._queued:
             queue.clear()
-        self.stats["pack_s"] += time.perf_counter() - t0
+        pack_s = time.perf_counter() - t0
+        self.stats["pack_s"] += pack_s
         self.stats["rounds"] += 1
         self.stats["macro_steps"] += program["steps"]
         self.stats["span_splits"] += program.get("span_splits", 0)
-        # SYNC BOUNDARY — read the previous round's overflow flag before
-        # its snapshot is retired
+        _M_ROUNDS.inc()
+        _M_OPS.inc(real + pool_real)
+        _M_PACK_MS.observe(pack_s * 1000.0)
+        if program.get("span_splits"):
+            _M_SPAN_SPLITS.inc(program["span_splits"])
+        self.flight.record(
+            "dispatch", round=self.stats["rounds"], real_ops=real,
+            pool_ops=pool_real, pack_ms=round(pack_s * 1000.0, 3),
+            capacity=self.capacity,
+        )
+        if self.trace_ops and self._round_msgs:
+            pack_t = time.time()
+            for m in self._round_msgs:
+                trace_stamp(m.traces, "sidecar", "pack", timestamp=pack_t)
+        # SYNC BOUNDARY — read the previous round's overflow flag (and
+        # charge and stamp the previous round) before its snapshot is
+        # retired
         self._settle()
         dead, self._dead = self._dead, None
         self._prev_table = self._table
         self._last_program = self._to_device(program)
         self._unsettled = True
-        self._table = self._apply_program(
-            self._prev_table, self._last_program,
-            self._fodder(dead, self._prev_table))
+        if self.heat is not None:
+            self._attr_counts = attr_counts
+            self._attr_t0 = attr_t0
+        if self.trace_ops:
+            self._inflight_msgs = self._round_msgs
+            self._round_msgs = []
+        # the device half, named by round in a device trace (opt-in:
+        # FFTPU_DEVICE_TRACE=1); either way it forces no sync
+        with device_trace(f"sidecar:dispatch:r{self.stats['rounds']}",
+                          self.device):
+            self._table = self._apply_program(
+                self._prev_table, self._last_program,
+                self._fodder(dead, self._prev_table))
         return real + pool_real
 
     def _fodder(self, dead: Optional[SegmentTable],
@@ -770,8 +995,31 @@ class GpuMergeSidecar:
         self._unsettled = False
         t0 = time.perf_counter()
         overflowed = bool(self._table.overflow.any())
-        self.stats["settle_s"] += time.perf_counter() - t0
+        settle_s = time.perf_counter() - t0
+        self.stats["settle_s"] += settle_s
+        _M_SETTLE_MS.observe(settle_s * 1000.0)
+        # `overflowed` is a host bool by now: the record reads no device
+        self.flight.record("settle", settle_ms=round(settle_s * 1000.0, 3),
+                           overflow=overflowed)
+        if self.heat is not None and self._attr_counts:
+            # the round's wall-ms (dispatch start -> here) split over its
+            # documents by ops applied: host math over host ints
+            round_ms = (self._attr_clock() - self._attr_t0) * 1000.0
+            attribute_round(self.heat, self._attr_counts, round_ms)
+            self._attr_counts = {}
+        if self.trace_ops and self._inflight_msgs:
+            settle_t = time.time()
+            for m in self._inflight_msgs:
+                trace_stamp(m.traces, "sidecar", "settle",
+                            timestamp=settle_t)
+            self._inflight_msgs = []
         if overflowed:
+            _M_RECOVER.inc()
+            # the automatic postmortem: what the loop did in the rounds
+            # leading up to the overflow
+            self.last_flight_dump = self.flight.dump_to(
+                reason="_settle found the overflow flag set "
+                       "(recovery running)")
             self._recover()
             # recovery re-applied, possibly at a new capacity: the old
             # snapshot is no fodder
@@ -816,7 +1064,10 @@ class GpuMergeSidecar:
         wrote a fresh table, so the snapshot is intact; a route that
         parked a document re-applies its whole window here)."""
         self.grow_count += 1
+        _M_GROW.inc()
         self.capacity = new_capacity
+        _M_CAPACITY.set(new_capacity)
+        self.flight.record("recover-grow", capacity=new_capacity)
         self._prev_table = pad_capacity(self._prev_table, new_capacity)
         self.stats["macro_steps"] += self._last_program["steps"]
         self._table = self._apply_program(self._prev_table,
@@ -844,14 +1095,33 @@ class GpuMergeSidecar:
         # state is current, so they need only the row retirement again
         fresh = [s for s in slots if s not in self._pool.row_of]
         t0 = time.perf_counter()
-        failed = self._pool.admit(fresh, self._streams) if fresh else []
+        failed = self._admit_with_retry(fresh) if fresh else []
         self.stats["admit_s"] += time.perf_counter() - t0
         admitted = [s for s in slots if s not in failed]
-        self.pool_admit_count += len([s for s in fresh if s not in failed])
+        newly = len([s for s in fresh if s not in failed])
+        self.pool_admit_count += newly
+        _M_POOL_ADMIT.inc(newly)
+        _M_POOLED.set(len(self._pool.members))
+        self.flight.record("recover-pool", admitted=newly,
+                           failed=len(failed))
         self._retire_rows(admitted)
         for slot in admitted:
             self._queued[slot].clear()  # replayed from the stream
         return failed
+
+    def _admit_with_retry(self, fresh: list) -> list:
+        """Pool admission behind the ``sidecar.pool_admit`` seam: a
+        transient admission fault (fired before the pool mutates
+        anything) retries once; a second degrades the slots to host
+        eviction, the last tier, instead of wedging the settle boundary.
+        Served text is the same on every tier."""
+        for _attempt in (0, 1):
+            if _SITE_POOL_ADMIT.fire(slots=len(fresh)) is None:
+                return self._pool.admit(fresh, self._streams)
+            _M_POOL_FAULTS.labels(tier="seq", op="admit").inc()
+        self.flight.record("recover-pool-admit-degraded",
+                           slots=len(fresh))
+        return list(fresh)
 
     def _evict(self, slot: int) -> None:
         """Move one document to a host-side scalar oracle replica —
@@ -864,6 +1134,8 @@ class GpuMergeSidecar:
         if slot in self._host:
             return
         self.evict_count += 1
+        _M_EVICT.inc()
+        self.flight.record("recover-evict", slot=slot)
         if self._pool is not None and slot in self._pool.row_of:
             # remove() is bookkeeping only: rebuild here, so every
             # eviction path leaves the other members' rows consistent
@@ -872,6 +1144,9 @@ class GpuMergeSidecar:
         host = MergeTreeClient(f"sidecar-host-{slot}")
         host.start_collaboration(f"sidecar-host-{slot}")
         self._host[slot] = host
+        _M_HOSTED.set(len(self._host))
+        if self._pool is not None:
+            _M_POOLED.set(len(self._pool.members))
         self._queued[slot].clear()
         for msg in decode_stream(self._streams[slot]):
             host.apply_msg(msg)

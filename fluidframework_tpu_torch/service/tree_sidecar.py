@@ -27,8 +27,12 @@ commits, and a straggler that must rebase over more is host work).
 announces ``channelType``, and the router feeds sharedstring channels
 to the merge sidecar and sharedtree channels to this one.
 
-Not ported (ROADMAP A10/A11): the metrics registry, the flight
-recorder, ``device_trace`` and the chaos site of the dispatch.
+The reference's hooks ride the same loop, host-side only: the
+``tree_sidecar_*`` / ``tree_pool_*`` registry families, a
+``FlightRecorder(256, name="tree-sidecar")`` dumped on an overflow
+recovery, the ``tree_sidecar.dispatch`` chaos site (it fires before the
+round mutates anything, so a retry is exact) and ``device_trace`` around
+the device half of every dispatch (``tree-sidecar:dispatch:r{n}``).
 """
 from __future__ import annotations
 
@@ -44,6 +48,9 @@ import torch
 from ..convert import tree_map, tree_program_to_device
 from ..models.tree.editmanager import Commit, EditManager
 from ..models.tree.forest import root_signature
+from ..obs import metrics as obs_metrics
+from ..obs.flight_recorder import FlightRecorder
+from ..obs.profiler import device_trace
 from ..ops.bucket_ladder import BucketLadder
 from ..ops.event_graph import validate_executor
 from ..ops.tree_apply import (
@@ -63,6 +70,61 @@ from ..ops.tree_apply import (
 )
 from ..protocol.messages import MessageType, SequencedMessage
 from ..protocol.tree_payload import tree_change_from_json
+from ..qos.faults import KIND_ERROR, KIND_ERROR_BURST, PLANE as _CHAOS
+
+# Registry families, the reference's names, kinds and labels
+_M_ROUNDS = obs_metrics.REGISTRY.counter(
+    "tree_sidecar_rounds_total", "tree dispatch rounds flushed")
+_M_COMMITS = obs_metrics.REGISTRY.counter(
+    "tree_sidecar_commits_total",
+    "sequenced tree changesets applied on device")
+_M_GROW = obs_metrics.REGISTRY.counter(
+    "tree_sidecar_grow_total", "tree capacity-ladder regrows")
+_M_EVICT = obs_metrics.REGISTRY.counter(
+    "tree_sidecar_evict_total",
+    "tree documents evicted to host EditManager replicas")
+_M_RING_EVICT = obs_metrics.REGISTRY.counter(
+    "tree_sidecar_ring_evict_total",
+    "tree documents evicted because a commit's ref predated the "
+    "device trunk ring (ring_safe)")
+_M_RECOVER = obs_metrics.REGISTRY.counter(
+    "tree_sidecar_overflow_recoveries_total",
+    "tree settle boundaries that found the overflow flag set")
+_M_POOL_ADMIT = obs_metrics.REGISTRY.counter(
+    "tree_sidecar_pool_admit_total",
+    "tree documents admitted to the pooled tier")
+_M_DUP_DROPS = obs_metrics.REGISTRY.counter(
+    "tree_sidecar_duplicate_drops_total",
+    "duplicate sequenced deliveries dropped by the per-document "
+    "sequence-number guard")
+_M_DISPATCH_FAULTS = obs_metrics.REGISTRY.counter(
+    "tree_sidecar_dispatch_faults_total",
+    "tree dispatch rounds that failed transiently before mutating "
+    "anything (commits stay queued; the next apply retries exactly)")
+_M_PACK_MS = obs_metrics.REGISTRY.histogram(
+    "tree_sidecar_pack_ms", "host half of a tree round (encode+pack)")
+_M_SETTLE_MS = obs_metrics.REGISTRY.histogram(
+    "tree_sidecar_settle_ms",
+    "device-wait at the tree settle boundary")
+_M_TRACKED = obs_metrics.REGISTRY.gauge(
+    "tree_sidecar_tracked_channels",
+    "tree channels on the device batch path")
+_M_HOSTED = obs_metrics.REGISTRY.gauge(
+    "tree_sidecar_host_docs",
+    "tree documents on host EditManager replicas")
+_M_CAPACITY = obs_metrics.REGISTRY.gauge(
+    "tree_sidecar_capacity",
+    "current tree slab capacity (node slots/doc)")
+_M_POOL_MEMBERS = obs_metrics.REGISTRY.gauge(
+    "tree_pool_members", "tree documents on the pooled tier")
+_M_POOL_DISPATCH = obs_metrics.REGISTRY.counter(
+    "tree_pool_dispatches_total",
+    "tree-pool incremental dispatches")
+
+# chaos seam: fires BEFORE the round mutates anything (queues intact, so
+# a retry is exact), the same contract as sidecar.dispatch
+_SITE_DISPATCH = _CHAOS.site(
+    "tree_sidecar.dispatch", (KIND_ERROR, KIND_ERROR_BURST))
 
 
 def default_tree_executor() -> str:
@@ -171,6 +233,7 @@ class TreeSeqPool:
         self.applied_upto = {
             slot: len(encoded[slot]) for slot in self.members
         }
+        _M_POOL_MEMBERS.set(len(self.members))
 
     def admit(self, slots: list, encoded: list[list[dict]]) -> list:
         """Admit sidecar slots; returns the slots that FAILED (exceed
@@ -217,6 +280,7 @@ class TreeSeqPool:
         if not pending:
             return []
         self.dispatch_count += 1
+        _M_POOL_DISPATCH.inc()
         self._table = self._apply(self._table, pack_tree_window(
             self._table.docs, pending, self.ladder, width=self.atoms))
         self.applied_upto.update(upto)
@@ -268,6 +332,12 @@ class TreeSidecar:
         self.width = width
         self.pipeline = pipeline
         self.ladder = ladder or BucketLadder()
+        self.flight = FlightRecorder(256, name="tree-sidecar")
+        self.last_flight_dump: Optional[str] = None
+        if os.environ.get("FFTPU_SANITIZE") == "1":
+            from ..testing import jitsan
+
+            jitsan.install_from_env()
         self._pool: Optional[TreeSeqPool] = None
         if pool_mesh is not None:
             from .gpu_sidecar import select_pool
@@ -311,6 +381,7 @@ class TreeSidecar:
         self.evict_count = 0
         self.ring_evict_count = 0
         self.stats = {"pack_s": 0.0, "settle_s": 0.0, "rounds": 0}
+        _M_CAPACITY.set(self.capacity)
 
     # ------------------------------------------------------------------
     # registration + ingest
@@ -333,6 +404,7 @@ class TreeSidecar:
         self._content_tables.append([])
         self._value_tables.append([])
         self._ring_hist.append(deque(maxlen=self.ring))
+        _M_TRACKED.set(len(self._raw))
         return slot
 
     def subscribe(self, server, document_id: str, datastore_id: str,
@@ -364,6 +436,7 @@ class TreeSidecar:
         upstream)."""
         last = self._last_ingested.get(document_id, 0)
         if msg.sequence_number <= last:
+            _M_DUP_DROPS.inc()
             return
         self._last_ingested[document_id] = msg.sequence_number
         envelope = msg.contents if isinstance(msg.contents, dict) else {}
@@ -394,6 +467,7 @@ class TreeSidecar:
             # the commit must rebase over more trunk commits than the
             # device ring retains: host work by design
             self.ring_evict_count += 1
+            _M_RING_EVICT.inc()
             self._evict_at_ingest(slot, commit)
             return
         try:
@@ -461,6 +535,12 @@ class TreeSidecar:
         return dispatch.apply(table, self.executor)
 
     def _dispatch(self) -> int:
+        # chaos seam BEFORE any mutation: queues intact, a retry is
+        # exactly the same round
+        fault = _SITE_DISPATCH.fire(queued=self.queued_commits)
+        if fault is not None:
+            _M_DISPATCH_FAULTS.inc()
+            raise _SITE_DISPATCH.transient(fault)
         t0 = time.perf_counter()
         packed: dict[int, list[dict]] = {}
         pool_commits = 0
@@ -479,16 +559,27 @@ class TreeSidecar:
         real = sum(len(v) for v in packed.values())
         for q in self._queued:
             q.clear()
-        self.stats["pack_s"] += time.perf_counter() - t0
+        pack_s = time.perf_counter() - t0
+        self.stats["pack_s"] += pack_s
         self.stats["rounds"] += 1
+        _M_ROUNDS.inc()
+        _M_COMMITS.inc(real + pool_commits)
+        _M_PACK_MS.observe(pack_s * 1000.0)
+        self.flight.record(
+            "dispatch", round=self.stats["rounds"], commits=real,
+            pool_commits=pool_commits, pack_ms=round(pack_s * 1000.0, 3),
+            capacity=self.capacity,
+        )
         # SYNC BOUNDARY — read the previous round's overflow flag
         # before its snapshot is retired below
         self._settle()
         self._prev_table = self._table
         self._last_dispatch = dispatch
         self._unsettled = True
-        self._table = self._apply_dispatch(self._prev_table,
-                                           self._last_dispatch)
+        with device_trace(f"tree-sidecar:dispatch:r{self.stats['rounds']}",
+                          self.device):
+            self._table = self._apply_dispatch(self._prev_table,
+                                               self._last_dispatch)
         return real + pool_commits
 
     def _settle(self) -> None:
@@ -501,8 +592,16 @@ class TreeSidecar:
         self._unsettled = False
         t0 = time.perf_counter()
         overflowed = bool(self._table.overflow.any())
-        self.stats["settle_s"] += time.perf_counter() - t0
+        settle_s = time.perf_counter() - t0
+        self.stats["settle_s"] += settle_s
+        _M_SETTLE_MS.observe(settle_s * 1000.0)
+        self.flight.record("settle", settle_ms=round(settle_s * 1000.0, 3),
+                           overflow=overflowed)
         if overflowed:
+            _M_RECOVER.inc()
+            self.last_flight_dump = self.flight.dump_to(
+                reason="tree _settle found the overflow flag set "
+                       "(recovery running)")
             self._recover()
         self._prev_table = None
         self._last_dispatch = None
@@ -537,7 +636,10 @@ class TreeSidecar:
         state, ring and overflow flag all predate the window (the park
         contract)."""
         self.grow_count += 1
+        _M_GROW.inc()
         self.capacity = new_capacity
+        _M_CAPACITY.set(new_capacity)
+        self.flight.record("recover-grow", capacity=new_capacity)
         self._prev_table = pad_tree_capacity(self._prev_table, new_capacity)
         self._table = self._apply_dispatch(self._prev_table,
                                            self._last_dispatch)
@@ -562,7 +664,11 @@ class TreeSidecar:
         fresh = [s for s in slots if s not in self._pool.row_of]
         failed = self._pool.admit(fresh, self._encoded) if fresh else []
         admitted = [s for s in slots if s not in failed]
-        self.pool_admit_count += len([s for s in fresh if s not in failed])
+        newly = len([s for s in fresh if s not in failed])
+        self.pool_admit_count += newly
+        _M_POOL_ADMIT.inc(newly)
+        self.flight.record("recover-pool", admitted=newly,
+                           failed=len(failed))
         self._retire_rows(admitted)
         for slot in admitted:
             self._queued[slot].clear()  # replayed from the stream
@@ -577,6 +683,8 @@ class TreeSidecar:
         if slot in self._host:
             return
         self.evict_count += 1
+        _M_EVICT.inc()
+        self.flight.record("recover-evict", slot=slot)
         if self._pool is not None and slot in self._pool.row_of:
             self._pool.remove(slot)
             self._pool.rebuild(self._encoded)
@@ -588,6 +696,9 @@ class TreeSidecar:
                 False,
             )
         self._host[slot] = replica
+        _M_HOSTED.set(len(self._host))
+        if self._pool is not None:
+            _M_POOL_MEMBERS.set(len(self._pool.members))
         self._queued[slot].clear()
 
     # ------------------------------------------------------------------

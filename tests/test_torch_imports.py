@@ -55,6 +55,22 @@ MATRIX_MODULES = (
     "fluidframework_tpu_torch.testing.matrix_streams",
 )
 
+# the observability, protection and tooling modules, named for the same
+# reason
+OBS_MODULES = (
+    "fluidframework_tpu_torch.obs.metrics",
+    "fluidframework_tpu_torch.obs.flight_recorder",
+    "fluidframework_tpu_torch.obs.trace",
+    "fluidframework_tpu_torch.obs.profiler",
+    "fluidframework_tpu_torch.obs.timeline",
+    "fluidframework_tpu_torch.qos.faults",
+    "fluidframework_tpu_torch.qos.breaker",
+    "fluidframework_tpu_torch.ops.window_cost",
+    "fluidframework_tpu_torch.testing.jitsan",
+    "fluidframework_tpu_torch.analysis.synccheck",
+    "fluidframework_tpu_torch.analysis.__main__",
+)
+
 _CHILD = r"""
 import importlib, json, pkgutil, sys
 import fluidframework_tpu_torch as port
@@ -80,7 +96,7 @@ def test_port_import_loads_no_jax():
     out = json.loads(proc.stdout)
     assert len(out["names"]) >= 20
     assert set(ROUTE_MODULES + TREE_MODULES + POOL_MODULES
-               + MATRIX_MODULES) <= set(out["names"])
+               + MATRIX_MODULES + OBS_MODULES) <= set(out["names"])
     assert out["bad"] == []
 
 
@@ -90,7 +106,8 @@ def _sources():
 
 def test_source_scan_covers_the_route_modules():
     scanned = set(_sources())
-    for name in ROUTE_MODULES + TREE_MODULES + POOL_MODULES + MATRIX_MODULES:
+    for name in (ROUTE_MODULES + TREE_MODULES + POOL_MODULES
+                 + MATRIX_MODULES + OBS_MODULES):
         path = REPO.joinpath(*name.split(".")).with_suffix(".py")
         assert path in scanned, name
 
