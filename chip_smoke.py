@@ -29,8 +29,12 @@ config14's mixed corpus on both macro-step routes with the donated
 double buffer on and off, walks ``prewarm``'s capacity x window ladder
 at the main path's shape, reruns the main path with every observability
 and protection hook on under one torch.profiler trace and drives chaos
-at the merge sidecar's, a mesh pool's and the tree sidecar's seams, and
-times the kernel beside its plain version.
+at the merge sidecar's, a mesh pool's and the tree sidecar's seams,
+serves a live collaborative session through the port's own
+``LocalServer``, local driver and ``Container``s into
+``GpuMergeSidecar`` (1024 documents x 2 writers x 4 rounds of 8 edits,
+a summarize, late joins from the summary), and times the kernel beside
+its plain version.
 
 The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
@@ -57,7 +61,13 @@ path with the hooks on (its wall beside the hooks-off one, the host
 profiler's overhead, and the checks: oracle, the hooks-off run, one
 dispatch range per round around every kernel launch, registry ==
 counters, heat conserved, hops, the sanitizer's bounds, no host sync in
-the device half) and one line per chaos run. The times lines cover the
+the device half) and one line per chaos run. The "service:" line holds
+the session's edits and sequenced messages, its edits per wall second,
+the host's seconds split into client, orderer, sidecar ingest and
+apply, the B1 launches, the device's busy time and idle share over the
+last two rounds, grows and evictions, and the checks (every document
+== both writers == its op log's scalar replay, late joins, one dispatch
+kernel == plain, no host sync in the device half). The times lines cover the
 window rungs 16 / 32 / 64 at the main shape and the capacities 4096 and
 8192, with the NOOP share and the bound of each timed batch. Every phase
 runs on every call; any failure exits non-zero without those lines, as
@@ -2036,6 +2046,7 @@ def _obs_config2(main_rec: dict) -> dict:
     )
     from fluidframework_tpu_torch.ops import cuda_merge
     from fluidframework_tpu_torch.ops.bucket_ladder import ladder_bounds
+    from fluidframework_tpu_torch.protocol.messages import MessageType
     from fluidframework_tpu_torch.qos import CircuitBreaker
     from fluidframework_tpu_torch.service import gpu_sidecar
     from fluidframework_tpu_torch.testing import jitsan
@@ -2112,11 +2123,14 @@ def _obs_config2(main_rec: dict) -> dict:
     for s, stream in enumerate(run["wrapped"]):
         for i, msg in enumerate(stream):
             hops = [f"{t.service}:{t.action}" for t in msg.traces]
-            if hops != want_hops:
+            # the recording sequencer stamped its ticket on each op
+            ticket = (["sequencer:ticket"]
+                      if msg.type == MessageType.OPERATION else [])
+            if hops != ticket + want_hops:
                 raise AssertionError(
                     f"stream {s} message {i}: hops {hops[:3]}... x "
-                    f"{len(hops)}, expected pack then settle, once per "
-                    f"document of its {tiles} tiles")
+                    f"{len(hops)}, expected the ticket (ops), then pack "
+                    f"then settle, once per document of its {tiles} tiles")
     bounds = ladder_bounds(16, 64, MAIN_CAPACITY, sidecar.max_capacity)
     over = {r: (counts[r], b) for r, b in bounds.items() if counts[r] > b}
     lib = cuda_merge.library_path()
@@ -2399,6 +2413,302 @@ def phase_obs(main_rec: dict, recorded: list) -> dict:
 
 
 # ----------------------------------------------------------------------
+# service: a real collaborative session through the port's own
+# LocalServer and Containers into GpuMergeSidecar
+
+SERVICE_DOCS, SERVICE_CAPACITY, SERVICE_MAX_CAPACITY = 1024, 512, 8192
+SERVICE_WRITERS, SERVICE_ROUNDS, SERVICE_EDITS = ("a", "b"), 4, 8
+SERVICE_SUMMARY_ROUND = 2  # writer A of every document summarizes after it
+SERVICE_PROFILED_ROUNDS = 2  # the device trace's last rounds
+SERVICE_LATE_EVERY = 8  # a third Container loads every 8th document
+
+
+class _SelfTimes:
+    """Exclusive host seconds per part: the time a wrapped call takes,
+    less the time of the wrapped calls inside it (the orderer's
+    broadcast runs the clients' and the sidecar's callbacks)."""
+
+    def __init__(self):
+        self.s = collections.Counter()
+        self._inner = []
+
+    @contextlib.contextmanager
+    def part(self, name: str):
+        start = time.perf_counter()
+        self._inner.append(0.0)
+        try:
+            yield
+        finally:
+            inner = self._inner.pop()
+            took = time.perf_counter() - start
+            self.s[name] += took - inner
+            if self._inner:
+                self._inner[-1] += took
+
+    def wrap(self, name: str, fn):
+        def timed(*args, **kwargs):
+            with self.part(name):
+                return fn(*args, **kwargs)
+        return timed
+
+
+def _service_edit(rng, s) -> None:
+    """One edit of the service traffic: insert 4-8 characters (0.6),
+    remove at most 8 (0.3), annotate bold (0.1)."""
+    n = s.get_length()
+    r = rng.random()
+    if r < 0.6 or n == 0:
+        s.insert_text(rng.randint(0, n), "".join(
+            rng.choice("abcdefghij ") for _ in range(rng.randint(4, 8))))
+    elif r < 0.9:
+        start = rng.randrange(n)
+        s.remove_text(start, min(n, start + rng.randint(1, 8)))
+    else:
+        start = rng.randrange(n)
+        s.annotate_range(start, min(n, start + rng.randint(1, 8)),
+                         {"bold": rng.randint(0, 3)})
+
+
+def _log_stream(log_msgs: list) -> list:
+    """A document's op log as the merge stream the oracle replays: the
+    channel's ops out of the runtime envelope, other runtime ops (the
+    attaches) as NOOPs, system messages as they are."""
+    from fluidframework_tpu_torch.protocol.messages import MessageType
+
+    out = []
+    for msg in log_msgs:
+        if msg.type == MessageType.OPERATION:
+            env = msg.contents if isinstance(msg.contents, dict) else {}
+            if (env.get("kind", "op") == "op" and env.get("address") == "d"
+                    and env.get("channel") == "s"):
+                msg = dataclasses.replace(msg, contents=env["contents"])
+            else:
+                msg = dataclasses.replace(msg, type=MessageType.NO_OP,
+                                          contents=None)
+        out.append(msg)
+    return out
+
+
+def _hold_scan_dispatch(sidecar) -> dict:
+    """Keep the inputs and a copy of the output of the first scan
+    dispatch that holds real ops (the device half's call)."""
+    from fluidframework_tpu_torch.ops.window_cost import real_ops
+
+    held = {}
+    inner = sidecar._apply_program
+
+    def holding(table, program, *donated):
+        out = inner(table, program, *donated)
+        if not held and "scan" in program and bool(
+                real_ops(program["scan"].kind).any()):
+            held.update(table=table, batch=program["scan"],
+                        out=type(out)(*(t.clone() for t in out)))
+        return out
+
+    sidecar._apply_program = holding
+    return held
+
+
+def phase_service(seed: int) -> dict:
+    """bench config14-full's table width as a live service: 1024
+    documents, two writer Containers each on the port's LocalServer and
+    local driver, GpuMergeSidecar subscribed to every document's
+    ("d", "s") channel; 4 rounds of 8 edits per writer, a flush per
+    writer per round, an apply per round, a summarize after round 2,
+    late joins from the summary. Every document held to both writers,
+    to a scalar replay of its op log and (every 8th) to a late joiner."""
+    import random
+
+    from fluidframework_tpu_torch.drivers import LocalDocumentServiceFactory
+    from fluidframework_tpu_torch.loader import Container
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.service import GpuMergeSidecar, LocalServer
+
+    rng = random.Random(seed)
+    tick = {"t": 1_000_000.0 + seed}
+
+    def clock():  # the server's manual clock
+        tick["t"] += 0.001
+        return tick["t"]
+
+    times = _SelfTimes()
+    t0 = time.perf_counter()
+    server = LocalServer(clock=clock)
+    connect = server.connect
+
+    def timed_connect(document_id, client_id, on_message, on_nack=None,
+                      **kw):
+        return connect(document_id, client_id,
+                       times.wrap("client", on_message),
+                       on_nack and times.wrap("client", on_nack), **kw)
+
+    server.connect = timed_connect
+    factory = LocalDocumentServiceFactory(server)
+    sidecar = GpuMergeSidecar(device="cuda", executor="scan",
+                              max_docs=SERVICE_DOCS,
+                              capacity=SERVICE_CAPACITY,
+                              max_capacity=SERVICE_MAX_CAPACITY)
+    guard = _guard_device_half(sidecar)
+    held = _hold_scan_dispatch(sidecar)
+    # the sidecar's ingest runs inside the orderer's broadcast
+    sidecar.ingest = times.wrap("sidecar ingest", sidecar.ingest)
+    docs = [f"svc-{d}" for d in range(SERVICE_DOCS)]
+    writers, acks = {}, []
+    for doc in docs:
+        sidecar.subscribe(server, doc, "d", "s")
+        orderer = server.get_orderer(doc)
+        for name in ("submit", "connect", "disconnect"):
+            setattr(orderer, name,
+                    times.wrap("orderer", getattr(orderer, name)))
+        with times.part("client"):
+            pair = [Container.load(factory.create_document_service(doc),
+                                   client_id=f"{doc}-{who}")
+                    for who in SERVICE_WRITERS]
+            pair[0].runtime.create_datastore("d").create_channel(
+                "sharedstring", "s")
+            pair[0].flush()
+            pair[0].on("summaryAck", acks.append)
+        writers[doc] = pair
+    setup_s = time.perf_counter() - t0
+
+    def string(c):
+        return c.runtime.get_datastore("d").get_channel("s")
+
+    first_profiled = SERVICE_ROUNDS - SERVICE_PROFILED_ROUNDS + 1
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    cuda_merge.LAUNCHES = 0
+    torch.cuda.synchronize()
+    before = dict(times.s)
+    t1 = time.perf_counter()
+    edits, apply_s, logged = 0, 0.0, {}
+    for rnd in range(1, SERVICE_ROUNDS + 1):
+        if rnd == first_profiled:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            prof.start()
+            t_prof = time.perf_counter()
+            start_s = t_prof - t_start  # left out of the rounds' wall
+        for doc in docs:
+            with times.part("client"):
+                for c in writers[doc]:
+                    s = string(c)
+                    for _ in range(SERVICE_EDITS):
+                        _service_edit(rng, s)
+                        edits += 1
+                for c in writers[doc]:
+                    c.flush()
+        t_apply = time.perf_counter()
+        sidecar.apply()
+        apply_s += time.perf_counter() - t_apply
+        if rnd == SERVICE_SUMMARY_ROUND:
+            for doc in docs:
+                # the op log up to here: the summary's ack truncates it
+                logged[doc] = server.read_ops(doc, 0)
+                with times.part("client"):
+                    writers[doc][0].summarize()
+    t_sync = time.perf_counter()
+    sidecar.sync()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    prof.stop()
+    sync_s, profiled_s = t_end - t_sync, t_end - t_prof
+    rounds_s = t_end - t1 - start_s
+    # the rounds' host seconds by part; "other" is the rest of the wall
+    host = {k: v - before.get(k, 0.0) for k, v in times.s.items()}
+    host["sidecar apply"], host["sync"] = apply_s, sync_s
+    host["other"] = rounds_s - sum(host.values())
+    busy = _device_busy_ms(prof)
+
+    # late joins from the scribe's summary plus the tail
+    late_equal = 0
+    for doc in docs[::SERVICE_LATE_EVERY]:
+        if server.latest_summary(doc) is None:
+            raise AssertionError(f"{doc}: no summary in the scribe's store")
+        with times.part("client"):
+            late = Container.load(factory.create_document_service(doc),
+                                  client_id=f"{doc}-late")
+        want = string(writers[doc][0])
+        if (string(late).get_text(), string(late).signature()) != \
+                (want.get_text(), want.signature()):
+            raise AssertionError(f"{doc}: the late joiner differs")
+        late_equal += 1
+    sidecar.apply()  # the late joins' sequenced joins
+    sidecar.sync()
+    torch.cuda.synchronize()
+    launches = cuda_merge.LAUNCHES
+    phase_s = time.perf_counter() - t0
+
+    t_check = time.perf_counter()
+    messages = 0
+    for doc in docs:
+        texts = {string(c).get_text() for c in writers[doc]}
+        served = sidecar.text(doc, "d", "s")
+        if texts != {served}:
+            raise AssertionError(f"{doc}: sidecar text differs from the "
+                                 f"writers'")
+        log_msgs = logged[doc] + server.read_ops(
+            doc, logged[doc][-1].sequence_number)
+        seqs = [m.sequence_number for m in log_msgs]
+        if seqs != list(range(1, len(seqs) + 1)):
+            raise AssertionError(f"{doc}: the op log is not contiguous")
+        messages += len(log_msgs)
+        text, sig = _oracle(_log_stream(log_msgs))
+        if text != served or sidecar.signature(doc, "d", "s") != sig:
+            raise AssertionError(f"{doc}: sidecar differs from the "
+                                 f"op log's replay")
+    if len(acks) != SERVICE_DOCS:
+        raise AssertionError(f"{len(acks)} summaries acked of "
+                             f"{SERVICE_DOCS}")
+    if launches <= 0 or not held or guard["calls"] <= 0:
+        raise AssertionError(f"B1 launches {launches}, held dispatch "
+                             f"{bool(held)}, guarded {guard['calls']}")
+    if sidecar.overflowed():
+        raise AssertionError("the service phase left an overflowed document")
+    want, err = _check_window(held["table"], held["batch"],
+                              "the service phase's dispatch")
+    bad = [f for f, x, y in zip(want._fields, held["out"], want)
+           if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"the service dispatch's output differs from "
+                             f"the plain version's at {bad}")
+    shape = (f"{want.docs} x {want.capacity} x "
+             f"{held['batch'].kind.shape[1]}")
+    check_s = time.perf_counter() - t_check
+    log(f"service: {SERVICE_DOCS} docs x {len(SERVICE_WRITERS)} writers "
+        f"(port LocalServer -> local driver -> Container, "
+        f"GpuMergeSidecar scan {SERVICE_DOCS} x {SERVICE_CAPACITY}, max "
+        f"{SERVICE_MAX_CAPACITY}), {SERVICE_ROUNDS} rounds x "
+        f"{SERVICE_EDITS} edits per writer: {edits} edits, {messages} "
+        f"sequenced messages; rounds wall {rounds_s:.3f} s, "
+        f"{edits / rounds_s:.1f} edits/s (phase wall {phase_s:.3f} s with "
+        f"setup {setup_s:.3f} s: {SERVICE_DOCS * len(SERVICE_WRITERS)} loads "
+        f"and attaches; {late_equal} late joins); the rounds' host s: "
+        f"client {host['client']:.3f} (Container edit, submit, flush, "
+        f"process, summarize), orderer {host['orderer']:.3f} (submit -> "
+        f"broadcast, the callbacks excluded), sidecar ingest "
+        f"{host['sidecar ingest']:.3f}, sidecar apply "
+        f"{host['sidecar apply']:.3f} (pack {sidecar.stats['pack_s']:.3f}, "
+        f"settle {sidecar.stats['settle_s']:.3f}), sync {host['sync']:.3f}, "
+        f"other {host['other']:.3f}; B1 "
+        f"launches {launches}; device trace of the last "
+        f"{SERVICE_PROFILED_ROUNDS} rounds (its start, {start_s:.3f} s, "
+        f"left out of the rounds' wall): busy {busy['total']:.3f} ms of "
+        f"{profiled_s * 1e3:.3f} ms, idle share "
+        f"{1 - busy['total'] / (profiled_s * 1e3):.6f}, {busy['events']} "
+        f"device events; grows {sidecar.grow_count}, host evictions "
+        f"{sidecar.evict_count} (host docs {sidecar.host_mode_docs()}); "
+        f"summaries acked {len(acks)}; late joins equal {late_equal}/"
+        f"{len(docs[::SERVICE_LATE_EVERY])}; every document's sidecar "
+        f"text == both writers' == its op log's scalar replay (signature "
+        f"too); one dispatch "
+        f"({shape}) kernel == plain, every field, and == the "
+        f"dispatch's own output; device half under sync debug 'error' in "
+        f"{guard['calls']} dispatches; checks {check_s:.3f} s")
+    return {"launches": launches, "max_abs_err": err}
+
+
+# ----------------------------------------------------------------------
 # times at the main path's shape
 
 def _time_ms(fn, reps: int, launches: int = 1) -> list:
@@ -2564,18 +2874,22 @@ def main() -> int:
         mark("prewarm")
         obs_rec = phase_obs(main_rec, recorded)
         mark("obs")
+        service_rec = phase_service(args.seed)
+        mark("service")
         time_rec = phase_time(args.seed)
         mark("times")
         log("phase walls: " + ", ".join(
             f"{name} {t - walls[i][1]:.3f} s"
             for i, (name, t) in enumerate(walls[1:])))
         worst = max(worst, time_rec.pop("max_abs_err"),
-                    pool_rec["max_abs_err"], matrix_rec["max_abs_err"])
+                    pool_rec["max_abs_err"], matrix_rec["max_abs_err"],
+                    service_rec["max_abs_err"])
         paths = {"main path": main_rec["launches"],
                  "matrix": matrix_rec["launches"],
                  "donated runs": donation_rec["launches"],
                  "prewarmed rounds": prewarm_rec["launches"],
-                 "obs runs": obs_rec["launches"]}
+                 "obs runs": obs_rec["launches"],
+                 "service": service_rec["launches"]}
     except Exception:  # noqa: BLE001 - report any failed phase, exit 1
         traceback.print_exc()
         log("FAIL")

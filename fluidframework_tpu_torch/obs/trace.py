@@ -21,8 +21,11 @@ A single op's submit→ack path, in canonical order:
     driver:deliver       the driver handed it to the container
     client:ack           the submitting container matched its csn
 
-In the port only the sidecar hops are stamped (``GpuMergeSidecar`` with
-``trace_ops`` on), and ``pool:migrate`` marks a mesh-pool migration on
+In the port the in-process session stamps ``client:submit``,
+``driver:send``, ``sequencer:ticket``, ``scriptorium:write``,
+``scribe:process``, ``broadcaster:fanout`` and ``client:ack``,
+``GpuMergeSidecar`` with ``trace_ops`` on stamps
+the sidecar hops, and ``pool:migrate`` marks a mesh-pool migration on
 the pool's own ``migration_traces`` list; the other hops belong to
 layers the port has not copied yet, and stay in the table so it is the
 reference's.
@@ -30,7 +33,7 @@ reference's.
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Iterable, Optional
 
 from ..protocol.messages import Trace
 
@@ -79,3 +82,46 @@ def stamp(traces: list, service: str, action: str,
 
 def hop_name(trace: Trace) -> str:
     return f"{trace.service}:{trace.action}"
+
+
+def breakdown(traces: Iterable[Trace]) -> list[dict]:
+    """Ordered per-hop latency attribution: a list of
+    ``{hop, timestamp, delta_ms}`` dicts sorted by stamp time, where
+    ``delta_ms`` is the time since the previous hop (0 for the
+    first). Stamps from different processes share wall-clock time, so
+    cross-host deltas inherit clock skew — same caveat as the
+    reference's ITrace."""
+    ordered = sorted(traces, key=lambda t: t.timestamp)
+    out = []
+    prev = None
+    for t in ordered:
+        out.append({
+            "hop": hop_name(t),
+            "timestamp": t.timestamp,
+            "delta_ms": 0.0 if prev is None
+            else (t.timestamp - prev) * 1000.0,
+        })
+        prev = t.timestamp
+    return out
+
+
+def total_ms(traces: Iterable[Trace]) -> float:
+    """Wall time between the first and last hop, in ms."""
+    stamps = [t.timestamp for t in traces]
+    return (max(stamps) - min(stamps)) * 1000.0 if stamps else 0.0
+
+
+def format_breakdown(traces: Iterable[Trace]) -> str:
+    """Human-readable ordered hop table (the "where was op X" view)."""
+    rows = breakdown(traces)
+    if not rows:
+        return "(no trace hops recorded)"
+    width = max(len(r["hop"]) for r in rows)
+    lines = [
+        f"  {r['hop']:<{width}}  +{r['delta_ms']:9.3f} ms"
+        for r in rows
+    ]
+    lines.append(
+        f"  {'total':<{width}}   {total_ms(traces):9.3f} ms"
+    )
+    return "\n".join(lines)

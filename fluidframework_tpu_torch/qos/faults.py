@@ -6,8 +6,10 @@ REPLAYABLE schedule fired at NAMED seams. Every recovery seam of the
 port's serving plane registers an :class:`InjectionSite` here — the
 merge sidecar's dispatch (``sidecar.dispatch``), the pools' dispatch,
 admission and migration (``sidecar.pool_dispatch``,
-``sidecar.pool_admit``, ``sidecar.pool_migrate``) and the tree
-sidecar's dispatch (``tree_sidecar.dispatch``), under the reference's
+``sidecar.pool_admit``, ``sidecar.pool_migrate``), the tree
+sidecar's dispatch (``tree_sidecar.dispatch``) and the durable store's
+checkpoint write, op-log append and bit rot (``storage.checkpoint_write``,
+``storage.oplog_append``, ``storage.bitrot``), under the reference's
 site and kind names. A site consults the plane at its seam; when a
 :class:`FaultSchedule` is armed, the plane's seeded per-site decision
 stream says which fault kind (if any) fires at that event, and
@@ -41,6 +43,8 @@ from ..obs.flight_recorder import FlightRecorder
 KIND_ERROR = "error"            # one transient exception
 KIND_ERROR_BURST = "error_burst"  # N consecutive errors (breaker trip)
 KIND_DEFER = "defer"            # skip this opportunity, retry later
+KIND_TORN_WRITE = "torn_write"  # prefix-truncated bytes (crash state)
+KIND_CORRUPT = "corrupt"        # insane length prefix on the wire
 
 #: how many consecutive events an ``error_burst`` poisons once fired —
 #: sized past every breaker failure_threshold in the tree (3) so one
@@ -60,7 +64,14 @@ _M_SITES = obs_metrics.REGISTRY.gauge(
 class TransientFault(Exception):
     """The exception ``error``/``error_burst`` faults raise — shaped
     like the transient faults the seams already survive (the sidecar's
-    breaker records it)."""
+    breaker records it; storage paths catch OSError subclasses where
+    they must, so sites that need OSError semantics raise
+    :class:`TransientIOFault`)."""
+
+
+class TransientIOFault(TransientFault, OSError):
+    """Transient fault for seams whose recovery contract is keyed on
+    OSError (checkpoint writes behind the storage breaker)."""
 
 
 class FaultSchedule:

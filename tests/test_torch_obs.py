@@ -26,7 +26,13 @@ from fluidframework_tpu.obs.timeline import FleetTimeline as RefTimeline
 from fluidframework_tpu.parallel import mesh_pool as ref_mesh_pool
 from fluidframework_tpu.qos import breaker as ref_breaker
 from fluidframework_tpu.qos import faults as ref_faults
+from fluidframework_tpu.loader import container as ref_container
+from fluidframework_tpu.runtime import container_runtime as ref_runtime
+from fluidframework_tpu.runtime import op_lifecycle as ref_lifecycle
 from fluidframework_tpu.service import LocalServer, TpuMergeSidecar
+from fluidframework_tpu.service import lambdas as ref_lambdas
+from fluidframework_tpu.service import sequencer as ref_sequencer
+from fluidframework_tpu.service import storage as ref_storage
 from fluidframework_tpu.service import tpu_sidecar as ref_sidecar
 from fluidframework_tpu.service import tree_sidecar as ref_tree
 from fluidframework_tpu.testing import jitsan as ref_jitsan
@@ -50,8 +56,16 @@ from fluidframework_tpu_torch.ops.merge_step import fused_step, table_to_state
 from fluidframework_tpu_torch.ops.window_cost import step_ops_per_slot
 from fluidframework_tpu_torch.parallel import mesh_pool
 from fluidframework_tpu_torch.qos import breaker, faults
+from fluidframework_tpu_torch.loader import container
+from fluidframework_tpu_torch.runtime import container_runtime, op_lifecycle
 from fluidframework_tpu_torch.service import GpuMergeSidecar
-from fluidframework_tpu_torch.service import gpu_sidecar, tree_sidecar
+from fluidframework_tpu_torch.service import (
+    gpu_sidecar,
+    lambdas,
+    sequencer,
+    storage,
+    tree_sidecar,
+)
 from fluidframework_tpu_torch.testing import (
     FuzzConfig,
     jitsan,
@@ -66,11 +80,15 @@ from test_torch_mesh_pool import (
 )
 
 REF_MODULES = (ref_sidecar, ref_mesh_pool, ref_tree, ref_heat, ref_faults,
-               ref_breaker, ref_profiler, ref_jitsan)
+               ref_breaker, ref_profiler, ref_jitsan, ref_sequencer,
+               ref_lambdas, ref_storage, ref_container, ref_runtime,
+               ref_lifecycle)
 PORT_MODULES = (gpu_sidecar, mesh_pool, tree_sidecar, heat, faults,
-                breaker, profiler, jitsan)
+                breaker, profiler, jitsan, sequencer, lambdas, storage,
+                container, container_runtime, op_lifecycle)
 SITES = ("sidecar.dispatch", "sidecar.pool_dispatch", "sidecar.pool_admit",
-         "sidecar.pool_migrate", "tree_sidecar.dispatch")
+         "sidecar.pool_migrate", "tree_sidecar.dispatch",
+         "storage.checkpoint_write", "storage.oplog_append", "storage.bitrot")
 # the flight-record fields that do not carry a wall time
 FLIGHT_FIELDS = ("round", "real_ops", "pool_ops", "capacity", "overflow",
                  "admitted", "failed", "slot", "slots")
@@ -93,10 +111,15 @@ def test_registry_families_match_reference():
 
 
 def test_chaos_sites_and_hop_table_match_reference():
-    want = {n: s.kinds for n, s in ref_faults.PLANE.sites().items()
-            if n in SITES}
+    """Every site the port registers (whichever port modules this
+    process has imported) is the reference's site of the same name, with
+    the same kinds; the sidecars' and the durable store's are among
+    them."""
+    ref_sites = ref_faults.PLANE.sites()
     got = {n: s.kinds for n, s in faults.PLANE.sites().items()}
-    assert got == want and sorted(got) == sorted(SITES)
+    assert set(got) <= set(ref_sites)
+    assert got == {n: ref_sites[n].kinds for n in got}
+    assert set(SITES) <= set(got)
     assert trace.CANONICAL_HOPS == ref_trace.CANONICAL_HOPS
     with pytest.raises(ValueError, match="unknown trace hop"):
         trace.stamp([], "warpdrive", "engage")  # fluidlint: disable=obs-untimed-hop -- the rule under test
