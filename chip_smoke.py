@@ -33,8 +33,13 @@ at the merge sidecar's, a mesh pool's and the tree sidecar's seams,
 serves a live collaborative session through the port's own
 ``LocalServer``, local driver and ``Container``s into
 ``GpuMergeSidecar`` (1024 documents x 2 writers x 4 rounds of 8 edits,
-a summarize, late joins from the summary), and times the kernel beside
-its plain version.
+a summarize, late joins from the summary), serves the same traffic live
+over TCP through the port's ``AlfredServer`` (tenancy, qos admission,
+the SLO engine, the heat ledger) and multiplexed socket drivers into
+``GpuMergeSidecar``, starts ``python -m fluidframework_tpu_torch.service``
+and asks its ``--dump-metrics`` and ``--dump-slo``, runs the open-loop
+``tools/serve_bench`` at bench config9's full width with its sidecar on
+the card, and times the kernel beside its plain version.
 
 The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
@@ -67,7 +72,15 @@ the host's seconds split into client, orderer, sidecar ingest and
 apply, the B1 launches, the device's busy time and idle share over the
 last two rounds, grows and evictions, and the checks (every document
 == both writers == its op log's scalar replay, late joins, one dispatch
-kernel == plain, no host sync in the device half). The times lines cover the
+kernel == plain, no host sync in the device half). The "ingress:" line
+holds the same for the TCP session, with the host's seconds over all
+threads split into client, ingress dispatch, orderer, sidecar ingest
+and apply, and the metrics, slo and heat frames' checks; the "ingress
+CLI:" line the service subprocess and its dump commands. Each "serve"
+line holds one open-loop run (offered, acked and shed ops, latency,
+backlog, pressure tier, the sidecar's round times on the card, the SLO
+verdicts); the "serve:" line the checks and the profiler's overhead.
+The times lines cover the
 window rungs 16 / 32 / 64 at the main shape and the capacities 4096 and
 8192, with the NOOP share and the bound of each timed batch. Every phase
 runs on every call; any failure exits non-zero without those lines, as
@@ -86,6 +99,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -2426,24 +2440,29 @@ SERVICE_LATE_EVERY = 8  # a third Container loads every 8th document
 class _SelfTimes:
     """Exclusive host seconds per part: the time a wrapped call takes,
     less the time of the wrapped calls inside it (the orderer's
-    broadcast runs the clients' and the sidecar's callbacks)."""
+    broadcast runs the clients' and the sidecar's callbacks). Each
+    thread nests its own calls; the sums are host seconds of all
+    threads."""
 
     def __init__(self):
         self.s = collections.Counter()
-        self._inner = []
+        self._local = threading.local()
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def part(self, name: str):
+        stack = self._local.__dict__.setdefault("inner", [])
         start = time.perf_counter()
-        self._inner.append(0.0)
+        stack.append(0.0)
         try:
             yield
         finally:
-            inner = self._inner.pop()
+            inner = stack.pop()
             took = time.perf_counter() - start
-            self.s[name] += took - inner
-            if self._inner:
-                self._inner[-1] += took
+            with self._lock:
+                self.s[name] += took - inner
+            if stack:
+                stack[-1] += took
 
     def wrap(self, name: str, fn):
         def timed(*args, **kwargs):
@@ -2709,6 +2728,767 @@ def phase_service(seed: int) -> dict:
 
 
 # ----------------------------------------------------------------------
+# ingress: the networked front door, live over TCP
+
+INGRESS_CONNECTIONS = 8  # TCP connections per writer group
+INGRESS_COLUMNAR_DOCS = 64  # documents of the raw wire-1.3 columnar leg
+INGRESS_COLUMNAR_OPS = 8  # ops per columnar batch, one batch per round
+INGRESS_QOS_OPS = 100_000.0  # default_limits' per-connection op rate
+INGRESS_TENANT = "smoke"
+INGRESS_WAIT_S = 300.0  # the longest a barrier of the phase may take
+CLI_EDITS = 4
+
+
+class _Loop:
+    """An asyncio event loop on a thread of its own, the shape of the
+    tests' ``alfred`` fixture: ``run`` waits for a coroutine there."""
+
+    def __init__(self):
+        import asyncio
+
+        self.asyncio = asyncio
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="ingress-loop")
+        self.thread.start()
+
+    def _run(self):
+        self.asyncio.set_event_loop(self.loop)
+        self.loop.run_forever()
+
+    def run(self, coro, timeout: float = INGRESS_WAIT_S):
+        return self.asyncio.run_coroutine_threadsafe(
+            coro, self.loop).result(timeout)
+
+    def close(self):
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(10)
+
+
+def _until(pred, what: str, timeout: float = INGRESS_WAIT_S) -> None:
+    deadline = time.perf_counter() + timeout
+    while not pred():
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+_THREAD_GROUPS = (("socket-recv-", "socket recv"),
+                  ("socket-dispatch-", "socket dispatch"),
+                  ("ingress-loop", "event loop"), ("MainThread", "main"))
+
+
+def _thread_cpu_s() -> collections.Counter:
+    """CPU seconds each group of this process's threads has used so far
+    (utime + stime of /proc/self/task/<tid>/stat; Linux)."""
+    import os
+
+    tick = os.sysconf("SC_CLK_TCK")
+    out = collections.Counter()
+    for t in threading.enumerate():
+        try:
+            with open(f"/proc/self/task/{t.native_id}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:  # the thread ended meanwhile
+            continue
+        group = next((g for prefix, g in _THREAD_GROUPS
+                      if t.name.startswith(prefix)), "other")
+        out[group] += (int(fields[11]) + int(fields[12])) / tick
+    return out
+
+
+def _ask(port: int, frame: dict) -> dict:
+    """One request frame on a connection of its own, the way the
+    service's ``--dump-*`` commands ask."""
+    import socket
+
+    from fluidframework_tpu_torch.service.ingress import (
+        pack_frame, recv_frame_blocking,
+    )
+
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
+        sock.sendall(pack_frame(dict(frame, rid=1)))
+        return recv_frame_blocking(sock)
+
+
+def _counters(snapshot: dict, names) -> dict:
+    """Each counter family's sum over its label sets."""
+    return {n: sum(snapshot.get(n, {}).get("values", {}).values())
+            for n in names}
+
+
+class _ColumnarWriter:
+    """A raw delta connection that submits untraced batches of plain
+    text inserts and removes: the wire-1.3 columnar path (a
+    ``Container`` stamps ``client:submit`` on every op, so its batches
+    ride the row boxcar). Its own text is what the log must replay to."""
+
+    def __init__(self, facade, doc: str):
+        self.doc, self.client_id = doc, f"{doc}-cols"
+        self.seen, self.text, self.csn = [], "", 0
+        self.conn = facade.connect_to_delta_stream(self.client_id,
+                                                   self.seen.append)
+
+    def own(self) -> int:
+        return sum(m.client_id == self.client_id and m.type == 2
+                   for m in self.seen)
+
+    def send(self, rng) -> None:
+        from fluidframework_tpu_torch.models.mergetree.ops import (
+            InsertOp, RemoveOp,
+        )
+        from fluidframework_tpu_torch.protocol.constants import mark_batch
+        from fluidframework_tpu_torch.protocol.messages import (
+            DocumentMessage, MessageType,
+        )
+
+        ref = self.seen[-1].sequence_number
+        for i in range(INGRESS_COLUMNAR_OPS):
+            n = len(self.text)
+            if n > 8 and rng.random() < 0.3:
+                start = rng.randrange(n - 1)
+                end = min(n, start + rng.randint(1, 6))
+                op = RemoveOp(pos1=start, pos2=end)
+                self.text = self.text[:start] + self.text[end:]
+            else:
+                pos = rng.randint(0, n)
+                chars = "".join(rng.choice("klmnop ")
+                                for _ in range(rng.randint(2, 6)))
+                op = InsertOp(pos1=pos, text=chars)
+                self.text = self.text[:pos] + chars + self.text[pos:]
+            self.csn += 1
+            last = i == INGRESS_COLUMNAR_OPS - 1
+            self.conn.submit(DocumentMessage(
+                client_sequence_number=self.csn,
+                reference_sequence_number=ref,
+                type=MessageType.OPERATION, contents=op,
+                metadata=mark_batch(None, True) if i == 0
+                else mark_batch(None, False) if last else None))
+
+
+def _cli_leg() -> dict:
+    """The normal entry point as a user starts it: ``python -m
+    fluidframework_tpu_torch.service --port 0 --qos --slo`` in a
+    subprocess, one ``Container`` over ``SocketDocumentServiceFactory``,
+    then ``--dump-metrics`` and ``--dump-slo`` against it."""
+    import os
+    import re
+
+    from fluidframework_tpu_torch.drivers import SocketDocumentServiceFactory
+    from fluidframework_tpu_torch.loader import Container
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "fluidframework_tpu_torch.service"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd + ["--port", "0", "--qos", "--slo"],
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, cwd=root)
+    try:
+        line = proc.stdout.readline()
+        found = re.search(r"listening on [\w.]+:(\d+)", line)
+        if not found:
+            raise AssertionError(f"the service printed {line!r}")
+        port = int(found.group(1))
+        start_s = time.perf_counter() - t0
+        svc = SocketDocumentServiceFactory(
+            "127.0.0.1", port).create_document_service("cli-doc")
+        try:
+            with svc.lock:
+                c = Container.load(svc, client_id="cli-writer")
+                s = c.runtime.create_datastore("d").create_channel(
+                    "sharedstring", "s")
+                for i in range(CLI_EDITS):
+                    s.insert_text(s.get_length(), f"edit {i}; ")
+                c.flush()
+
+            def acked():
+                with svc.lock:
+                    return c.runtime.pending.count == 0
+            _until(acked, "the CLI service's acks", 60)
+            with svc.lock:
+                text = s.get_text()
+                c.close()
+        finally:
+            svc.close()
+        want = "".join(f"edit {i}; " for i in range(CLI_EDITS))
+        if text != want:
+            raise AssertionError(f"the CLI session's text {text!r}")
+        dumps = {}
+        for flag, must in (("--dump-metrics", ("ingress_frames_total",
+                                               "ingress_ops_ticketed_total",
+                                               "qos_admitted_total")),
+                           ("--dump-slo", ("ingress-dispatch-p99",
+                                           "ingress-goodput"))):
+            out = subprocess.run(cmd + [flag, f"127.0.0.1:{port}"],
+                                 capture_output=True, text=True,
+                                 timeout=120, cwd=root)
+            missing = [m for m in must if m not in out.stdout]
+            if out.returncode != 0 or missing:
+                raise AssertionError(f"{flag}: rc {out.returncode}, "
+                                     f"missing {missing}: "
+                                     f"{out.stderr[-500:]}")
+            dumps[flag] = len(out.stdout.splitlines())
+    finally:
+        proc.terminate()
+        try:
+            rc = proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+            raise AssertionError("the service did not stop on SIGTERM")
+        proc.stdout.close()
+    if rc != -15:
+        raise AssertionError(f"the service exited {rc} on SIGTERM")
+    return {"start_s": start_s, "port": port, "dumps": dumps,
+            "wall_s": time.perf_counter() - t0, "rc": rc}
+
+
+def phase_ingress(seed: int) -> dict:
+    """The service's normal entry point, live over TCP, at the service
+    cell's width: ``AlfredServer`` (tenancy, qos admission with its
+    pressure monitor, the SLO engine, the heat ledger) over the port's
+    ``LocalServer`` on an event-loop thread; 1024 documents, two writer
+    ``Container``s each, every writer group over
+    ``INGRESS_CONNECTIONS`` multiplexed TCP connections with a signed
+    token per document; ``GpuMergeSidecar`` subscribed to every
+    document's ("d", "s") channel, applied on the loop thread once every
+    writer has its acks; 4 rounds of 8 edits per writer, a summarize
+    through the chunked upload plane after round 2, late joiners
+    through the snapshot cache; a raw columnar leg on 64 more
+    documents; then the CLI leg. Every document held to both writers,
+    to a scalar replay of its op log and (every 8th) to a late joiner;
+    the metrics, slo and heat frames held to the phase's own counts.
+    The server carries a usage ledger as ``run_server`` does, so the
+    tenant counters count."""
+    import random
+
+    from fluidframework_tpu_torch.drivers import CachingMultiplexFactory
+    from fluidframework_tpu_torch.loader import Container
+    from fluidframework_tpu_torch.obs import (
+        HeatLedger, SloEngine, usage_ledger,
+    )
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.qos import (
+        AdmissionController, Budget, PressureMonitor, default_limits,
+    )
+    from fluidframework_tpu_torch.service import (
+        AlfredServer, GpuMergeSidecar, LocalServer, TenantManager,
+        gpu_sidecar, sign_token,
+    )
+    from fluidframework_tpu_torch.service.ingress import (
+        default_slo_objectives,
+    )
+
+    rng = random.Random(seed)
+    tick = {"t": 2_000_000.0 + seed}
+
+    def clock():  # the server's manual clock
+        tick["t"] += 0.001
+        return tick["t"]
+
+    times = _SelfTimes()
+    t0 = time.perf_counter()
+    local = LocalServer(clock=clock)
+    tenants = TenantManager()
+    key = tenants.create_tenant(INGRESS_TENANT, key=f"smoke-{seed}").key
+    # default_limits' op and byte budgets; the bulk classes' budgets are
+    # raised to this phase's bursts (1024 summaries and 2048 loads in
+    # seconds), so admission runs on every frame and sheds nothing
+    big = Budget(1e7)
+    limits = dataclasses.replace(
+        default_limits(INGRESS_QOS_OPS), summary_uploads=big,
+        summary_bytes=Budget(1e12), catchup_reads=big)
+    pressure = PressureMonitor(min_interval_s=0.05)
+    heat = HeatLedger(max_keys=SERVICE_DOCS)
+    alfred = AlfredServer(
+        local, tenants=tenants,
+        qos=AdmissionController(limits, pressure=pressure),
+        slo=SloEngine(default_slo_objectives()), heat=heat,
+        usage=usage_ledger())
+    alfred._dispatch = times.wrap("ingress dispatch", alfred._dispatch)
+    loop = _Loop()
+    charges = []
+    inner_attr = gpu_sidecar.attribute_round
+
+    def counted(ledger, counts, round_ms, *a, **kw):
+        charged = inner_attr(ledger, counts, round_ms, *a, **kw)
+        charges.append((round_ms, charged))
+        return charged
+
+    gpu_sidecar.attribute_round = counted
+    factories = []
+    try:
+        loop.run(alfred.start())
+        port = alfred.port
+        sidecar = GpuMergeSidecar(device="cuda", executor="scan",
+                                  max_docs=SERVICE_DOCS,
+                                  capacity=SERVICE_CAPACITY,
+                                  max_capacity=SERVICE_MAX_CAPACITY,
+                                  heat=heat)
+        guard = _guard_device_half(sidecar)
+        held = _hold_scan_dispatch(sidecar)
+        sidecar.ingest = times.wrap("sidecar ingest", sidecar.ingest)
+        docs = [f"tcp-{d}" for d in range(SERVICE_DOCS)]
+        col_docs = [f"cols-{d}" for d in range(INGRESS_COLUMNAR_DOCS)]
+
+        def token_for(doc):
+            return sign_token(key, INGRESS_TENANT, doc, "smoke-user")
+
+        groups = [[CachingMultiplexFactory(
+            "127.0.0.1", port, tenant_id=INGRESS_TENANT,
+            token_for=token_for) for _ in range(INGRESS_CONNECTIONS)]
+            for _ in SERVICE_WRITERS]
+        factories += [f for g in groups for f in g]
+        for doc in docs:
+            sidecar.subscribe(local, doc, "d", "s")
+            orderer = local.get_orderer(doc)
+            for name in ("submit", "connect", "disconnect"):
+                setattr(orderer, name,
+                        times.wrap("orderer", getattr(orderer, name)))
+        writers, acks = {}, []
+        for d, doc in enumerate(docs):
+            with times.part("client"):
+                pair = []
+                for g, who in enumerate(SERVICE_WRITERS):
+                    svc = groups[g][d % INGRESS_CONNECTIONS] \
+                        .create_document_service(doc)
+                    with svc.lock:
+                        pair.append((svc, Container.load(
+                            svc, client_id=f"{doc}-{who}")))
+                (sa, ca) = pair[0]
+                with sa.lock:
+                    ca.runtime.create_datastore("d").create_channel(
+                        "sharedstring", "s")
+                    ca.flush()
+                    ca.on("summaryAck", acks.append)
+            writers[doc] = pair
+        clients = {id(f._client): f._client for g in groups for f in g}
+        for client in clients.values():  # the dispatch threads' deliveries
+            client._deliver = times.wrap("client", client._deliver)
+        col_writers = [_ColumnarWriter(
+            groups[0][d % INGRESS_CONNECTIONS]._shared_client()
+            .document_service(doc, tenant_id=INGRESS_TENANT,
+                              token=token_for(doc)), doc)
+            for d, doc in enumerate(col_docs)]
+
+        flat = [p for pair in writers.values() for p in pair]
+        cursor = [0]
+
+        def all_acked():
+            # resumes at the first writer the last poll found pending (a
+            # writer stays acked until its next edits), so polling takes
+            # the locks and the interpreter from the pipeline only briefly
+            while cursor[0] < len(flat):
+                svc, c = flat[cursor[0]]
+                with svc.lock:
+                    if c.runtime.pending.count:
+                        return False
+                cursor[0] += 1
+            return all(w.own() == w.csn and w.seen for w in col_writers)
+
+        _until(all_acked, "the loads and attaches")
+        setup_s = time.perf_counter() - t0
+
+        def string(c):
+            return c.runtime.get_datastore("d").get_channel("s")
+
+        async def apply_round():
+            with times.part("sidecar apply"):
+                return sidecar.apply()
+
+        async def settle():
+            sidecar.sync()
+            torch.cuda.synchronize()
+
+        first_profiled = SERVICE_ROUNDS - SERVICE_PROFILED_ROUNDS + 1
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        frames0 = _ask(port, {"type": "metrics"})["metrics"]
+        seq0 = {doc: local.get_orderer(doc).sequencer.sequence_number
+                for doc in docs + col_docs}
+        cuda_merge.LAUNCHES = 0
+        torch.cuda.synchronize()
+        before = dict(times.s)
+        cpu0 = _thread_cpu_s()
+        t1 = time.perf_counter()
+        edits, wait_s, logged, col_batches = 0, 0.0, {}, 0
+        for rnd in range(1, SERVICE_ROUNDS + 1):
+            if rnd == first_profiled:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+                prof.start()
+                t_prof = time.perf_counter()
+                start_s = t_prof - t_start  # left out of the rounds' wall
+            for doc in docs:
+                with times.part("client"):
+                    for svc, c in writers[doc]:
+                        with svc.lock:
+                            s = string(c)
+                            for _ in range(SERVICE_EDITS):
+                                _service_edit(rng, s)
+                                edits += 1
+                            c.flush()
+            for w in col_writers:
+                w.send(rng)
+                col_batches += 1
+            t_wait = time.perf_counter()
+            cursor[0] = 0
+            _until(all_acked, f"round {rnd}'s acks")
+            wait_s += time.perf_counter() - t_wait
+            loop.run(apply_round())
+            if rnd == SERVICE_SUMMARY_ROUND:
+                for doc in docs:
+                    # the op log up to here: the summary's ack truncates it
+                    logged[doc] = local.read_ops(doc, 0)
+                    svc, c = writers[doc][0]
+                    with times.part("client"), svc.lock:
+                        c.summarize()
+                _until(lambda: len(acks) == SERVICE_DOCS,
+                       "the summary acks")
+        t_sync = time.perf_counter()
+        loop.run(settle())
+        t_end = time.perf_counter()
+        prof.stop()
+        sync_s, profiled_s = t_end - t_sync, t_end - t_prof
+        rounds_s = t_end - t1 - start_s
+        host = {k: v - before.get(k, 0.0) for k, v in times.s.items()}
+        host["sync"], host["acks wait"] = sync_s, wait_s
+        cpu = _thread_cpu_s()
+        cpu.subtract(cpu0)
+        busy = _device_busy_ms(prof)
+        frames1 = _ask(port, {"type": "metrics"})["metrics"]
+        seq1 = {doc: local.get_orderer(doc).sequencer.sequence_number
+                for doc in docs + col_docs}
+
+        # late joiners on every 8th document: the summary fetched into
+        # the snapshot cache, the load served from it plus the tail
+        late_factory = CachingMultiplexFactory(
+            "127.0.0.1", port, tenant_id=INGRESS_TENANT,
+            token_for=token_for)
+        factories.append(late_factory)
+        late_docs = docs[::SERVICE_LATE_EVERY]
+        late = []
+        for doc in late_docs:
+            svc = late_factory.create_document_service(doc)
+            if svc.get_latest_summary() is None:
+                raise AssertionError(f"{doc}: no summary to cache")
+            with times.part("client"), svc.lock:
+                late.append((doc, svc, Container.load(
+                    svc, client_id=f"{doc}-late")))
+        for doc, svc, c in late:
+            if svc.last_load_source != "cache":
+                raise AssertionError(f"{doc}: the late load came from "
+                                     f"{svc.last_load_source}")
+        _until(lambda: all(
+            c.last_processed_seq ==
+            local.get_orderer(doc).sequencer.sequence_number
+            for doc, _, c in late), "the late joiners' catch-up")
+        late_equal = 0
+        for doc, svc, c in late:
+            want = string(writers[doc][0][1])
+            with svc.lock:
+                got = (string(c).get_text(), string(c).signature())
+            if got != (want.get_text(), want.signature()):
+                raise AssertionError(f"{doc}: the late joiner differs")
+            late_equal += 1
+        loop.run(apply_round())  # the late joins' sequenced joins
+        loop.run(settle())
+        launches = cuda_merge.LAUNCHES
+        slo = _ask(port, {"type": "slo"})
+        heat_frame = _ask(port, {"type": "heat", "k": SERVICE_DOCS})
+        phase_s = time.perf_counter() - t0
+
+        t_check = time.perf_counter()
+        messages = 0
+        for doc in docs:
+            texts = set()
+            for svc, c in writers[doc]:
+                with svc.lock:
+                    texts.add(string(c).get_text())
+            served = sidecar.text(doc, "d", "s")
+            if texts != {served}:
+                raise AssertionError(f"{doc}: sidecar text differs from "
+                                     f"the writers'")
+            log_msgs = logged[doc] + local.read_ops(
+                doc, logged[doc][-1].sequence_number)
+            seqs = [m.sequence_number for m in log_msgs]
+            if seqs != list(range(1, len(seqs) + 1)):
+                raise AssertionError(f"{doc}: the op log is not contiguous")
+            messages += len(log_msgs)
+            text, sig = _oracle(_log_stream(log_msgs))
+            if text != served or sidecar.signature(doc, "d", "s") != sig:
+                raise AssertionError(f"{doc}: sidecar differs from the "
+                                     f"op log's replay")
+        col_ops = 0
+        for w in col_writers:
+            log_msgs = local.read_ops(w.doc, 0)
+            col_ops += sum(m.client_id == w.client_id for m in log_msgs)
+            if _oracle(log_msgs)[0] != w.text:
+                raise AssertionError(f"{w.doc}: the columnar log's replay "
+                                     f"differs from its writer")
+        if len(acks) != SERVICE_DOCS:
+            raise AssertionError(f"{len(acks)} summaries acked of "
+                                 f"{SERVICE_DOCS}")
+        if launches <= 0 or not held or guard["calls"] <= 0:
+            raise AssertionError(f"B1 launches {launches}, held dispatch "
+                                 f"{bool(held)}, guarded {guard['calls']}")
+        if sidecar.overflowed():
+            raise AssertionError("the ingress phase left an overflowed "
+                                 "document")
+        want, err = _check_window(held["table"], held["batch"],
+                                  "the ingress phase's dispatch")
+        bad = [f for f, x, y in zip(want._fields, held["out"], want)
+               if not torch.equal(x, y)]
+        if bad:
+            raise AssertionError(f"the ingress dispatch's output differs "
+                                 f"from the plain version's at {bad}")
+        shape = (f"{want.docs} x {want.capacity} x "
+                 f"{held['batch'].kind.shape[1]}")
+
+        # the metrics frame's counters over the rounds against the
+        # phase's own counts: every client op of the rounds offered and
+        # ticketed once, the summaries through the upload plane, the
+        # columnar batches decoded as such, nothing shed or nacked
+        names = ("ingress_ops_offered_total", "ingress_ops_ticketed_total",
+                 "ingress_columnar_batches_total", "ingress_nacks_sent_total",
+                 "ingress_throttle_nacks_total", "ingress_errors_sent_total",
+                 "ingress_outbound_dropped_total", "tenant_sheds_total",
+                 "tenant_summary_uploads_total", "qos_shed_total")
+        c0, c1 = _counters(frames0, names), _counters(frames1, names)
+        got = {n: c1[n] - c0[n] for n in names}
+        client_ops = 0
+        for doc in docs + col_docs:
+            log_msgs = (logged[doc] + local.read_ops(
+                doc, logged[doc][-1].sequence_number)
+                if doc in logged else local.read_ops(doc, 0))
+            client_ops += sum(
+                seq0[doc] < m.sequence_number <= seq1[doc]
+                and m.client_id is not None for m in log_msgs)
+        want = dict.fromkeys(names, 0)
+        want.update({"ingress_ops_offered_total": client_ops,
+                     "ingress_ops_ticketed_total": client_ops,
+                     "ingress_columnar_batches_total": col_batches,
+                     "tenant_summary_uploads_total": SERVICE_DOCS})
+        if got != want:
+            raise AssertionError(f"the metrics frame's counters {got} != "
+                                 f"the phase's {want}")
+        report = slo.get("report") or {}
+        graded = {o["name"]: o["verdict"]
+                  for o in report.get("objectives", [])
+                  if o["slow"]["total"] > 0}
+        objectives = {o.name for o in default_slo_objectives()}
+        if set(graded) != objectives or not set(graded.values()) <= {
+                "ok", "warn", "breach"}:
+            raise AssertionError(f"the slo frame graded {graded}")
+        for ms, charged in charges:
+            if abs(charged - ms) > 1e-9 * ms:
+                raise AssertionError(f"{charged!r} ms charged of {ms!r}")
+        charged_ms = sum(ms for ms, _ in charges)
+        framed_ms = sum(ms for _, ms in heat_frame["docs"])
+        if len(heat_frame["docs"]) != SERVICE_DOCS or \
+                abs(framed_ms - charged_ms) > 1e-9 * charged_ms:
+            raise AssertionError(
+                f"the heat frame holds {len(heat_frame['docs'])} documents "
+                f"and {framed_ms!r} ms of the sidecar's {charged_ms!r}")
+        check_s = time.perf_counter() - t_check
+        cli = _cli_leg()
+    finally:
+        gpu_sidecar.attribute_round = inner_attr
+        for f in factories:
+            f.close()
+        try:
+            loop.run(alfred.stop(), 60)
+        finally:
+            loop.close()
+    log(f"ingress: {SERVICE_DOCS} docs x {len(SERVICE_WRITERS)} writers "
+        f"over TCP (AlfredServer with tenancy, qos admission + pressure, "
+        f"SLO engine and heat ledger on an event-loop thread -> port "
+        f"LocalServer; each writer group on {INGRESS_CONNECTIONS} "
+        f"multiplexed connections, a signed token per document; "
+        f"GpuMergeSidecar scan {SERVICE_DOCS} x {SERVICE_CAPACITY}, max "
+        f"{SERVICE_MAX_CAPACITY}, applied on the loop thread), "
+        f"{SERVICE_ROUNDS} rounds x {SERVICE_EDITS} edits per writer: "
+        f"{edits} edits, {messages} sequenced messages, plus "
+        f"{col_batches} columnar batches ({col_ops} ops) on "
+        f"{INGRESS_COLUMNAR_DOCS} documents; rounds wall {rounds_s:.3f} s, "
+        f"{edits / rounds_s:.1f} edits/s (phase wall {phase_s:.3f} s with "
+        f"setup {setup_s:.3f} s: {SERVICE_DOCS * len(SERVICE_WRITERS)} "
+        f"loads and attaches over TCP; {late_equal} late joins); the "
+        f"rounds' exclusive wall s inside each part, summed over threads "
+        f"(waits for the interpreter lock included): client "
+        f"{host['client']:.3f} "
+        f"(Container edit, flush, summarize on the main thread; the "
+        f"socket dispatch threads' deliveries), ingress dispatch "
+        f"{host['ingress dispatch']:.3f} (frame decode, auth, admission, "
+        f"the orderer excluded), orderer {host['orderer']:.3f} (the "
+        f"callbacks excluded), sidecar ingest "
+        f"{host['sidecar ingest']:.3f}, sidecar apply "
+        f"{host['sidecar apply']:.3f} (pack {sidecar.stats['pack_s']:.3f}, "
+        f"settle {sidecar.stats['settle_s']:.3f}), main thread waiting for "
+        f"acks {host['acks wait']:.3f}, sync {host['sync']:.3f}; the "
+        f"rounds' thread CPU s: main {cpu['main']:.2f}, socket recv "
+        f"{cpu['socket recv']:.2f}, socket dispatch "
+        f"{cpu['socket dispatch']:.2f}, event loop {cpu['event loop']:.2f}, "
+        f"other {cpu['other']:.2f}; sum {sum(cpu.values()):.2f} of the "
+        f"{rounds_s:.2f} s wall; B1 "
+        f"launches {launches}; device trace of the last "
+        f"{SERVICE_PROFILED_ROUNDS} rounds (its start, {start_s:.3f} s, "
+        f"left out of the rounds' wall): busy {busy['total']:.3f} ms of "
+        f"{profiled_s * 1e3:.3f} ms, idle share "
+        f"{1 - busy['total'] / (profiled_s * 1e3):.6f}, {busy['events']} "
+        f"device events; grows {sidecar.grow_count}, host evictions "
+        f"{sidecar.evict_count}; metrics frame over the rounds: "
+        f"{json.dumps(got, sort_keys=True)}; slo frame "
+        f"{json.dumps(graded, sort_keys=True)}; heat frame "
+        f"{len(heat_frame['docs'])} documents, {framed_ms:.3f} ms == the "
+        f"sidecar's {len(charges)} charged rounds; summaries acked "
+        f"{len(acks)} through the upload plane; late joins from the "
+        f"snapshot cache equal {late_equal}/{len(late_docs)}; every "
+        f"document's sidecar text == both writers' == its op log's scalar "
+        f"replay (signature too), every columnar log's replay == its "
+        f"writer; one dispatch ({shape}) kernel == plain, every field, "
+        f"and == the dispatch's own output; device half under sync debug "
+        f"'error' in {guard['calls']} dispatches; checks {check_s:.3f} s")
+    log(f"ingress CLI: python -m fluidframework_tpu_torch.service --port 0 "
+        f"--qos --slo listening after {cli['start_s']:.3f} s; one "
+        f"Container over SocketDocumentServiceFactory, {CLI_EDITS} edits "
+        f"acked and read back; --dump-metrics ({cli['dumps']['--dump-metrics']}"
+        f" lines) and --dump-slo ({cli['dumps']['--dump-slo']} lines) exit "
+        f"0 with the expected families; SIGTERM -> exit {cli['rc']}; leg "
+        f"{cli['wall_s']:.3f} s")
+    return {"launches": launches, "max_abs_err": err}
+
+
+# ----------------------------------------------------------------------
+# serve: the open-loop serving harness at bench config9's full shape
+
+# cut in depth: config9 runs 6.0 simulated seconds, but the harness's
+# pressure monitor samples on every admitted op (min_interval_s 0 on
+# the manual clock) and each sample scans all 24,000 sessions, so the
+# host cost grows as ops x sessions (0.5 s took 45-49 s per run on the
+# H100 machine's host); the width stays whole
+SERVE_DOCS, SERVE_READERS, SERVE_DURATION_S = 6000, 3, 0.25
+SERVE_CAPACITY_OPS, SERVE_SEED, SERVE_SIDECAR_DOCS = 3000.0, 90, 256
+SERVE_RUNS = (("steady", 0.8, False), ("steady, profiler on", 0.8, True),
+              ("overload", 3.0, False))
+
+
+def _fed_replay(enc, fed: int):
+    """A scalar replay of the first ``fed`` encoded ops of a stream."""
+    from fluidframework_tpu_torch.ops.host_bridge import decode_stream
+
+    prefix = copy.copy(enc)
+    prefix.ops = enc.ops[:fed]
+    return _oracle(decode_stream(prefix))
+
+
+def phase_serve() -> dict:
+    """``tools/serve_bench`` at bench config9's full width (6000
+    documents x (1 writer + 3 readers) = 24,000 sessions, capacity 3000
+    ops/s, seed 90; ``SERVE_DURATION_S`` simulated seconds of its 6)
+    with its sidecar route on
+    the card (256 documents, capacity 256, 8 ops per round): steady
+    (0.8x) with the profiler off and on, and overload (3x). The steady
+    runs' deterministic fields equal each other, the overload breaches
+    the goodput and latency objectives, and every sidecar document
+    equals a scalar replay of the prefix of its stream it was fed."""
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.tools import serve_bench
+
+    built = []
+    build = serve_bench._build_sidecar
+
+    def holding(cfg, **kw):
+        sidecar, encs = build(cfg, **kw)
+        built.append((sidecar, encs, _guard_device_half(sidecar),
+                      _hold_scan_dispatch(sidecar)))
+        return sidecar, encs
+
+    t0 = time.perf_counter()
+    serve_bench._build_sidecar = holding
+    cuda_merge.LAUNCHES = 0
+    try:
+        reports = [serve_bench.run_serve_bench(serve_bench.ServeBenchConfig(
+            n_docs=SERVE_DOCS, readers_per_doc=SERVE_READERS,
+            duration_s=SERVE_DURATION_S,
+            capacity_ops_per_s=SERVE_CAPACITY_OPS,
+            offered_multiple=multiple, seed=SERVE_SEED, profile=profile,
+            sidecar_docs=SERVE_SIDECAR_DOCS, sidecar_device="cuda"))
+            for _, multiple, profile in SERVE_RUNS]
+    finally:
+        serve_bench._build_sidecar = build
+    torch.cuda.synchronize()
+    launches = cuda_merge.LAUNCHES
+    phase_s = time.perf_counter() - t0
+
+    steady, profiled, overload = reports
+    if profiled.deterministic_fields() != steady.deterministic_fields():
+        raise AssertionError("serve: the steady runs differ: "
+                             f"{steady.deterministic_fields()} != "
+                             f"{profiled.deterministic_fields()}")
+    verdicts = [{o["name"]: o["verdict"] for o in r.slo_report["objectives"]}
+                for r in reports]
+    if (verdicts[2]["goodput-floor"], verdicts[2]["submit-ack-p99"]) != \
+            ("breach", "breach"):
+        raise AssertionError(f"serve: the 3x overload graded {verdicts[2]}")
+    replays = {}
+    for (sidecar, encs, guard, held), rep in zip(built, reports):
+        if guard["calls"] != rep.sidecar_rounds or not held:
+            raise AssertionError(f"serve: {guard['calls']} guarded "
+                                 f"dispatches of {rep.sidecar_rounds}")
+        fed_ops = rep.sidecar_rounds * serve_bench.ServeBenchConfig \
+            .sidecar_round_ops
+        for d in range(SERVE_SIDECAR_DOCS):
+            enc = encs[d % len(encs)]
+            key = (d % len(encs), min(len(enc.ops), fed_ops))
+            if key not in replays:
+                replays[key] = _fed_replay(enc, key[1])
+            doc = f"sdoc-{d}"
+            if (sidecar.text(doc, "ds", "ch"),
+                    sidecar.signature(doc, "ds", "ch")) != replays[key]:
+                raise AssertionError(f"serve: {doc} differs from the "
+                                     f"replay of its first {key[1]} ops")
+    if launches <= 0:
+        raise AssertionError(f"serve: B1 launches {launches}")
+    sidecar, _, _, held = built[0]
+    want, err = _check_window(held["table"], held["batch"],
+                              "the serve sidecar's dispatch")
+    bad = [f for f, x, y in zip(want._fields, held["out"], want)
+           if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"the serve dispatch's output differs from "
+                             f"the plain version's at {bad}")
+    overhead = (profiled.wall_s - steady.wall_s) / steady.wall_s
+    for (name, multiple, _), rep, verdict in zip(SERVE_RUNS, reports,
+                                                 verdicts):
+        log(f"serve {name} ({multiple}x): {rep.sessions} sessions, "
+            f"offered {rep.offered_ops}, acked {rep.acked_ops}, shed "
+            f"{rep.shed_ops} ops; p50 {rep.latency_p50_ms} / p99 "
+            f"{rep.latency_p99_ms} simulated ms; peak backlog "
+            f"{rep.backlog_peak}; highest pressure tier "
+            f"{rep.max_pressure_tier}; sidecar {rep.sidecar_rounds} rounds, "
+            f"{rep.sidecar_ops} ops, round p50 / p99 "
+            f"{rep.sidecar_round_p50_ms:.3f} / {rep.sidecar_round_p99_ms:.3f}"
+            f" wall ms on the card; SLO {json.dumps(verdict, sort_keys=True)}"
+            f" ({rep.slo_breach_evaluations} of {rep.slo_evaluations} "
+            f"evaluations breached); wall {rep.wall_s:.3f} s")
+    log(f"serve: config9 at full width ({SERVE_DOCS} docs x (1 writer + "
+        f"{SERVE_READERS} readers), {SERVE_DURATION_S} simulated s of its "
+        f"6, "
+        f"capacity {SERVE_CAPACITY_OPS} ops/s, seed {SERVE_SEED}; sidecar "
+        f"GpuMergeSidecar on cuda, {SERVE_SIDECAR_DOCS} docs x 256); the "
+        f"steady runs' deterministic fields equal; the overload breaches "
+        f"goodput-floor and submit-ack-p99; every sidecar document of the "
+        f"3 runs == the scalar replay of its fed prefix; B1 launches "
+        f"{launches}; one dispatch "
+        f"({want.docs} x {want.capacity} x {held['batch'].kind.shape[1]}) "
+        f"kernel == plain, every field; the profiler's overhead "
+        f"{overhead:.4f} of the steady wall ({profiled.wall_s:.3f} vs "
+        f"{steady.wall_s:.3f} s); phase wall {phase_s:.3f} s")
+    return {"launches": launches, "max_abs_err": err}
+
+
+# ----------------------------------------------------------------------
 # times at the main path's shape
 
 def _time_ms(fn, reps: int, launches: int = 1) -> list:
@@ -2876,6 +3656,10 @@ def main() -> int:
         mark("obs")
         service_rec = phase_service(args.seed)
         mark("service")
+        ingress_rec = phase_ingress(args.seed)
+        mark("ingress")
+        serve_rec = phase_serve()
+        mark("serve")
         time_rec = phase_time(args.seed)
         mark("times")
         log("phase walls: " + ", ".join(
@@ -2883,13 +3667,16 @@ def main() -> int:
             for i, (name, t) in enumerate(walls[1:])))
         worst = max(worst, time_rec.pop("max_abs_err"),
                     pool_rec["max_abs_err"], matrix_rec["max_abs_err"],
-                    service_rec["max_abs_err"])
+                    service_rec["max_abs_err"], ingress_rec["max_abs_err"],
+                    serve_rec["max_abs_err"])
         paths = {"main path": main_rec["launches"],
                  "matrix": matrix_rec["launches"],
                  "donated runs": donation_rec["launches"],
                  "prewarmed rounds": prewarm_rec["launches"],
                  "obs runs": obs_rec["launches"],
-                 "service": service_rec["launches"]}
+                 "service": service_rec["launches"],
+                 "ingress": ingress_rec["launches"],
+                 "serve": serve_rec["launches"]}
     except Exception:  # noqa: BLE001 - report any failed phase, exit 1
         traceback.print_exc()
         log("FAIL")

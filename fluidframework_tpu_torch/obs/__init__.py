@@ -4,16 +4,26 @@ process-wide metrics registry (``obs.metrics``), the flight recorder
 (``obs.flight_recorder``), the heat ledger and its device-time
 attribution (``obs.heat``), the continuous host profiler and the
 torch.profiler / NVTX device-trace hooks (``obs.profiler``), the
-fleet timeline (``obs.timeline``), and the shutdown path that flushes
+fleet timeline (``obs.timeline``), the SLO engine (``obs.slo``), the
+OTLP span export of the hop tables (``obs.spans``), the fleet-merged
+registry view (``obs.federation``), and the shutdown path that flushes
 the telemetry aggregators (``register_closeable`` / ``shutdown``)."""
 from __future__ import annotations
 
 import weakref
 
+from .federation import FederatedView
 from .flight_recorder import FlightRecorder
 from .heat import HeatLedger, attribute_round, usage_ledger
-from .metrics import REGISTRY, MetricsRegistry
+from .metrics import REGISTRY, MetricsRegistry, get_registry
 from .profiler import ContinuousProfiler, device_trace
+from .slo import Objective, SloEngine
+from .spans import (
+    FileSpanExporter,
+    op_to_otlp,
+    otlp_to_hops,
+    timeline_to_otlp,
+)
 from .timeline import TIMELINE_KINDS, FleetTimeline
 from .trace import (
     CANONICAL_HOPS,
@@ -25,11 +35,13 @@ from .trace import (
 )
 
 __all__ = [
-    "CANONICAL_HOPS", "ContinuousProfiler", "FleetTimeline",
-    "FlightRecorder", "HeatLedger", "MetricsRegistry", "REGISTRY",
-    "TIMELINE_KINDS", "attribute_round", "breakdown", "device_trace",
-    "format_breakdown", "hop_name", "register_closeable", "shutdown",
-    "stamp", "total_ms", "usage_ledger",
+    "CANONICAL_HOPS", "ContinuousProfiler", "FederatedView",
+    "FileSpanExporter", "FleetTimeline", "FlightRecorder",
+    "HeatLedger", "MetricsRegistry", "Objective", "REGISTRY",
+    "SloEngine", "TIMELINE_KINDS", "attribute_round", "breakdown",
+    "device_trace", "format_breakdown", "get_registry", "hop_name",
+    "op_to_otlp", "otlp_to_hops", "register_closeable", "shutdown",
+    "stamp", "timeline_to_otlp", "total_ms", "usage_ledger",
 ]
 
 # ----------------------------------------------------------------------

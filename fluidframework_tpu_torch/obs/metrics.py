@@ -1,12 +1,14 @@
 """Unified metrics registry: counters, gauges and histograms with
-label sets, Prometheus-style text exposition and a flat view for deltas.
+label sets, Prometheus-style text exposition plus a JSON snapshot.
 
-A copy of the reference's ``obs/metrics.py``, trimmed to what the port
-uses: one process-wide :data:`REGISTRY` that the sidecars, the pools,
-the heat ledger, the fault plane, the breaker, the profiler and the
-sanitizer register their families in. Family, label and kind names are
-the reference's letter for letter, so a dashboard reads both packages
-alike.
+A copy of the reference's ``obs/metrics.py``: one process-wide
+:data:`REGISTRY` that the sidecars, the pools, the heat ledger, the
+fault plane, the breaker, the profiler, the sanitizer, the sequencer,
+the ingress, the socket driver and the qos plane register their
+families in. The ingress serves it over the ``metrics`` frame, and
+``python -m fluidframework_tpu_torch.service --dump-metrics`` prints it.
+Family, label and kind names are the reference's letter for letter, so
+a dashboard reads both packages alike.
 
 Conventions: snake_case names, ``_total`` suffix on counters, ``_ms``
 suffix on duration histograms, label sets small and bounded (never a
@@ -142,6 +144,19 @@ class Histogram:
             },
         }
 
+    def count_le(self, bound: float) -> int:
+        """Cumulative count of observations <= the LARGEST bucket
+        bound that is <= ``bound`` (exact when ``bound`` is a bucket
+        bound; conservative otherwise — the SLO engine snaps its
+        thresholds to bucket bounds so the two agree)."""
+        with _LOCK:
+            counts = list(self.counts)
+        total = 0
+        for b, c in zip(self.buckets, counts):
+            if b <= bound:
+                total += c
+        return total
+
 
 _CHILD_TYPES = {"counter": Counter, "gauge": Gauge,
                 "histogram": Histogram}
@@ -216,9 +231,18 @@ class MetricsRegistry:
     """The family registry. Re-registering an existing name returns
     the SAME family (modules may be imported in any order and several
     instances share the aggregate series), but a kind or label-schema
-    mismatch fails loudly — two definitions of one name is a bug."""
+    mismatch fails loudly — two definitions of one name is a bug.
 
-    def __init__(self) -> None:
+    ``node`` is the registry's fleet identity: every snapshot a node
+    ships into ``obs.federation.FederatedView`` carries it
+    (``node_snapshot()``), and the federated merge keys gauges by it.
+    The process-wide default is ``"local"``; in-process multi-node
+    harnesses (chaos, test_replication) give each follower / partition
+    worker its own registry with its own node id so per-node series
+    never double-count into one registry."""
+
+    def __init__(self, node: str = "local") -> None:
+        self.node = node
         self._families: dict[str, _Family] = {}
 
     def _register(self, name: str, kind: str, help: str,
@@ -253,11 +277,38 @@ class MetricsRegistry:
                               buckets)
 
     def get(self, name: str) -> Optional[_Family]:
-        """The registered family, or None."""
+        """The registered family, or None — the SLO engine binds
+        objectives to families by name and must fail loudly on an
+        unregistered one (the runtime half of fluidlint's
+        ``slo-unbound-objective`` rule)."""
         with _LOCK:
             return self._families.get(name)
 
     # -- exposition ----------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """JSON-able view: name -> {type, help, values} where values
+        maps a rendered label set ('' for none) to the series value
+        (number, or the histogram's {count, sum, buckets})."""
+        with _LOCK:
+            families = list(self._families.values())
+        return {
+            fam.name: {
+                "type": fam.kind,
+                "help": fam.help,
+                "values": {
+                    labels: child.value
+                    for labels, child in fam.series().items()
+                },
+            }
+            for fam in families
+        }
+
+    def node_snapshot(self) -> dict:
+        """``snapshot()`` wrapped with this registry's fleet identity
+        — the shape ``FederatedView.add_snapshot`` consumes from a
+        remote node's wire frame."""
+        return {"node": self.node, "metrics": self.snapshot()}
 
     def flat(self) -> dict[str, float]:
         """Flat scalar view for deltas: 'name{labels}' -> number
@@ -276,7 +327,7 @@ class MetricsRegistry:
 
     def delta(self, before: dict[str, float]) -> dict[str, float]:
         """Nonzero changes of the flat view since ``before`` (a prior
-        ``flat()``)."""
+        ``flat()``); the stress tools report this per run."""
         now = self.flat()
         out = {}
         for key, value in now.items():
@@ -315,7 +366,24 @@ class MetricsRegistry:
                     lines.append(f"{fam.name}{labels} {child.value}")
         return "\n".join(lines) + "\n"
 
+    def reset(self) -> None:
+        """Zero every series in place (tests; existing child handles
+        held by modules stay valid)."""
+        with _LOCK:
+            for fam in self._families.values():
+                for child in fam._children.values():
+                    if isinstance(child, Histogram):
+                        child.counts = [0] * (len(child.buckets) + 1)
+                        child.count = 0
+                        child.sum = 0.0
+                    else:
+                        child._value = 0.0
 
-# THE process-wide registry: modules register families at import and
-# bump them freely.
+
+# THE process-wide registry (lumberjack/prom-client default-registry
+# pattern): modules register families at import and bump them freely.
 REGISTRY = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    return REGISTRY

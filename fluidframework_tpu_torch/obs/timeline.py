@@ -121,6 +121,12 @@ class FleetTimeline:
     def __len__(self) -> int:
         return len(self._events)
 
+    @property
+    def dropped(self) -> int:
+        """Events evicted by the capacity ring (seq is causal and
+        never reused, so the arithmetic is exact)."""
+        return self._seq - len(self._events)
+
     def deterministic_events(self) -> list[tuple]:
         """The event sequence as plain comparable tuples —
         ``(seq, t, node, kind, sorted scalar fields)``. Everything

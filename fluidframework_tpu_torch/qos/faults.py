@@ -1,7 +1,6 @@
 """The deterministic process-wide fault-injection plane.
 
-A copy of the reference's ``qos/faults.py``, trimmed to what the port's
-seams use. Faults are not random monkey-testing: they are a SEEDED,
+A copy of the reference's ``qos/faults.py``. Faults are not random monkey-testing: they are a SEEDED,
 REPLAYABLE schedule fired at NAMED seams. Every recovery seam of the
 port's serving plane registers an :class:`InjectionSite` here — the
 merge sidecar's dispatch (``sidecar.dispatch``), the pools' dispatch,
@@ -9,8 +8,13 @@ admission and migration (``sidecar.pool_dispatch``,
 ``sidecar.pool_admit``, ``sidecar.pool_migrate``), the tree
 sidecar's dispatch (``tree_sidecar.dispatch``) and the durable store's
 checkpoint write, op-log append and bit rot (``storage.checkpoint_write``,
-``storage.oplog_append``, ``storage.bitrot``), under the reference's
-site and kind names. A site consults the plane at its seam; when a
+``storage.oplog_append``, ``storage.bitrot``), the ingress's summary
+upload (``ingress.summary_upload``), the socket driver's frames
+(``socket.frame_in``, ``socket.frame_out``) and the scripted frames of
+``testing/fault_injection.py`` (``testing.scripted_frame``), under the
+reference's site and kind names. ``standard_rates`` keeps the
+reference's whole mix, sites of layers the port has not copied yet
+included. A site consults the plane at its seam; when a
 :class:`FaultSchedule` is armed, the plane's seeded per-site decision
 stream says which fault kind (if any) fires at that event, and
 ``push`` scripts one regardless. Disarmed and unscripted, a site costs
@@ -39,12 +43,23 @@ from typing import Optional
 from ..obs import metrics as obs_metrics
 from ..obs.flight_recorder import FlightRecorder
 
-# the kinds the port's seams speak (the reference's names)
+# ----------------------------------------------------------------------
+# the one injection vocabulary (testing/fault_injection.py speaks it
+# too — satellite fold; docs/ROBUSTNESS.md has the kind x site matrix)
+
+KIND_DROP = "drop"              # frame vanishes (slow-consumer shape)
+KIND_DUPLICATE = "duplicate"    # delivered twice (at-least-once shape)
+KIND_REORDER = "reorder"        # held past the next frame
+KIND_DELAY = "delay"            # held until the next pump
+KIND_DISCONNECT = "disconnect"  # transport torn down, no goodbye
+KIND_NACK = "nack"              # injected throttle nack, op dropped
 KIND_ERROR = "error"            # one transient exception
 KIND_ERROR_BURST = "error_burst"  # N consecutive errors (breaker trip)
 KIND_DEFER = "defer"            # skip this opportunity, retry later
 KIND_TORN_WRITE = "torn_write"  # prefix-truncated bytes (crash state)
 KIND_CORRUPT = "corrupt"        # insane length prefix on the wire
+KIND_PARTITION = "partition"    # links between islands go dark
+KIND_HEAL = "heal"              # a partition's links come back
 
 #: how many consecutive events an ``error_burst`` poisons once fired —
 #: sized past every breaker failure_threshold in the tree (3) so one
@@ -63,7 +78,7 @@ _M_SITES = obs_metrics.REGISTRY.gauge(
 
 class TransientFault(Exception):
     """The exception ``error``/``error_burst`` faults raise — shaped
-    like the transient faults the seams already survive (the sidecar's
+    like the transient faults the seams already survive (the sidecar
     breaker records it; storage paths catch OSError subclasses where
     they must, so sites that need OSError semantics raise
     :class:`TransientIOFault`)."""
@@ -97,6 +112,12 @@ class FaultSchedule:
         site) so cross-site interleaving cannot perturb decisions."""
         return random.Random(f"{self.seed}:{site_name}")
 
+    def rng_for(self, purpose: str) -> random.Random:
+        """A seeded stream for HARNESS decisions derived from the same
+        seed (crash step, tear mode, reconnect delays) — everything a
+        failing seed needs to reproduce rides the one number."""
+        return random.Random(f"{self.seed}/{purpose}")
+
     def __repr__(self) -> str:
         return (f"FaultSchedule(seed={self.seed}, "
                 f"rates={self.rates!r}, "
@@ -106,9 +127,10 @@ class FaultSchedule:
 class InjectionSite:
     """One named seam. ``fire()`` at the seam returns the fault kind
     to apply (or None); ``push()`` queues a scripted injection (the
-    reference's faultInjectionDriver vocabulary) that fires at the
-    next event regardless of any armed schedule; ``force()`` records
-    an injection the caller already decided on."""
+    faultInjectionDriver vocabulary: injectNack/injectDisconnect) that
+    fires at the next event regardless of any armed schedule;
+    ``force()`` records an injection the caller already decided on
+    (the harness's crash-time torn writes)."""
 
     def __init__(self, plane: "FaultPlane", name: str,
                  kinds: tuple[str, ...]):
@@ -122,7 +144,7 @@ class InjectionSite:
         # per-arm decision stream (None while disarmed)
         self._stream: Optional[random.Random] = None
 
-    # -- scripted injections ---------------------------------------------
+    # -- scripted injections (fault_injection.py fold) ------------------
 
     def push(self, kind: str, count: int = 1) -> None:
         if kind not in self.kinds:
@@ -172,7 +194,8 @@ class InjectionSite:
         return None
 
     def force(self, kind: str, **context) -> str:
-        """Record an injection the caller performs itself: counted and
+        """Record an injection the caller performs itself (crash-time
+        torn writes enumerated by the harness): counted and
         flight-recorded like any fired fault."""
         self.events += 1
         return self._record(kind, context)
@@ -212,6 +235,14 @@ class FaultPlane:
         #: replayable injection sequence the determinism test pins
         self.fired: list[tuple[str, int, str]] = []
         self.flight = FlightRecorder(512, name="chaos")
+        #: observer hooks (testing/failsan.py registers here — qos
+        #: imports nothing above itself, so the observers come to the
+        #: plane): ``on_arm`` callbacks get the schedule AFTER the
+        #: sites are armed; ``on_disarm`` callbacks get the plane
+        #: BEFORE the schedule is cleared, so they can read the seed
+        #: and the fired log of the window that is ending
+        self.on_arm: list = []
+        self.on_disarm: list = []
 
     def site(self, name: str,
              kinds: tuple[str, ...] = ()) -> InjectionSite:
@@ -227,9 +258,10 @@ class FaultPlane:
         self._sites[name] = site
         _M_SITES.set(len(self._sites))
         if self.schedule is not None:
-            # a seam first imported AFTER arm() must still get its
-            # decision stream, or the armed schedule silently never
-            # fires there
+            # a seam first imported AFTER arm() (lazy imports mid-run)
+            # must still get its decision stream, or the armed
+            # schedule silently never fires there — the exact silent
+            # hole the plane's loudness contract exists to close
             site._arm(self.schedule)
         return site
 
@@ -252,11 +284,15 @@ class FaultPlane:
         _M_ARMED.set(1)
         self.flight.record("arm", seed=schedule.seed,
                            rates=str(sorted(schedule.rates)))
+        for hook in list(self.on_arm):
+            hook(schedule)
 
     def disarm(self) -> None:
         if self.schedule is not None:
             self.flight.record("disarm", seed=self.schedule.seed,
                                fired=len(self.fired))
+            for hook in list(self.on_disarm):
+                hook(self)
         self.schedule = None
         for site in self._sites.values():
             site._arm(None)
@@ -281,3 +317,48 @@ class FaultPlane:
 
 #: THE process-wide plane every seam registers against
 PLANE = FaultPlane()
+
+
+def standard_rates(sites: Optional[list[str]] = None
+                   ) -> dict[str, dict[str, float]]:
+    """The standard chaos mix (tools/stress --chaos, bench config11,
+    the convergence differential): moderate rates at every seam,
+    tuned so a ~100-event run fires a handful of faults per armed
+    site. ``sites`` filters to a subset (--sites a,b)."""
+    rates = {
+        "socket.frame_in": {
+            KIND_DROP: 0.08, KIND_DUPLICATE: 0.08,
+            KIND_REORDER: 0.06, KIND_DELAY: 0.05,
+        },
+        "socket.frame_out": {
+            KIND_DISCONNECT: 0.02, KIND_NACK: 0.03,
+        },
+        "broker.queue_append": {KIND_ERROR: 0.02},
+        "broker.queue_consume": {KIND_DUPLICATE: 0.05},
+        "storage.checkpoint_write": {
+            KIND_ERROR: 0.02, KIND_ERROR_BURST: 0.01,
+        },
+        "sidecar.dispatch": {
+            KIND_ERROR: 0.04, KIND_ERROR_BURST: 0.01,
+        },
+        "sidecar.pool_dispatch": {KIND_DEFER: 0.20},
+        "sidecar.pool_admit": {KIND_ERROR: 0.25},
+        "sidecar.pool_migrate": {KIND_DEFER: 0.25},
+        "ingress.summary_upload": {KIND_ERROR: 0.30},
+        # replicated sequencer seams (service/replication.py +
+        # partitioning's queue counterpart): follower lag, lost/
+        # erroring acks, lease renewal loss + spurious lapse (the
+        # split-brain trigger), transient election failures
+        "repl.lag": {KIND_DEFER: 0.15},
+        "repl.append_ack": {KIND_DROP: 0.04, KIND_ERROR: 0.02},
+        "repl.lease_expire": {KIND_DROP: 0.03, KIND_ERROR: 0.01},
+        "repl.promote": {KIND_ERROR: 0.25},
+    }
+    if sites is not None:
+        unknown = set(sites) - set(rates)
+        if unknown:
+            raise ValueError(
+                f"unknown chaos sites {sorted(unknown)}; known: "
+                f"{sorted(rates)}")
+        rates = {k: v for k, v in rates.items() if k in sites}
+    return rates

@@ -1,7 +1,9 @@
-"""Service plane of the port: the sequencer (deli), the lambda pipeline,
-the in-process orderer and local server, the GPU merge sidecar, the tree
-sidecar and its pooled tier, and the channel-kind router."""
+"""Service plane of the port: the networked ingress (alfred) and its
+tenancy, the sequencer (deli), the lambda pipeline, the in-process
+orderer and local server, the GPU merge sidecar, the tree sidecar and
+its pooled tier, and the channel-kind router."""
 from .gpu_sidecar import GpuMergeSidecar
+from .ingress import AlfredServer
 from .lambdas import (
     BroadcasterLambda,
     CopierLambda,
@@ -13,9 +15,12 @@ from .lambdas import (
 from .local_orderer import LocalOrderer
 from .local_server import DeltaConnection, LocalServer
 from .sequencer import DocumentSequencer, TicketResult
+from .tenancy import AuthError, Tenant, TenantManager, sign_token
 from .tree_sidecar import ChannelKindRouter, TreeSeqPool, TreeSidecar
 
 __all__ = [
+    "AlfredServer",
+    "AuthError",
     "BroadcasterLambda",
     "ChannelKindRouter",
     "CopierLambda",
@@ -28,7 +33,10 @@ __all__ = [
     "ScribeLambda",
     "ScriptoriumLambda",
     "SummaryStore",
+    "Tenant",
+    "TenantManager",
     "TicketResult",
     "TreeSeqPool",
     "TreeSidecar",
+    "sign_token",
 ]

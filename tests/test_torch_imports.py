@@ -105,6 +105,28 @@ SERVICE_MODULES = (
     "fluidframework_tpu_torch.testing.runtime_mocks",
 )
 
+# the networked front door's modules and the planes it rides on, named
+# for the same reason
+INGRESS_MODULES = (
+    "fluidframework_tpu_torch.protocol.columnar",
+    "fluidframework_tpu_torch.service.tenancy",
+    "fluidframework_tpu_torch.qos.rate_limiter",
+    "fluidframework_tpu_torch.qos.pressure",
+    "fluidframework_tpu_torch.qos.policy",
+    "fluidframework_tpu_torch.qos.admission",
+    "fluidframework_tpu_torch.obs.slo",
+    "fluidframework_tpu_torch.obs.spans",
+    "fluidframework_tpu_torch.obs.federation",
+    "fluidframework_tpu_torch.service.ingress",
+    "fluidframework_tpu_torch.service.__main__",
+    "fluidframework_tpu_torch.drivers.socket_driver",
+    "fluidframework_tpu_torch.drivers.caching_driver",
+    "fluidframework_tpu_torch.testing.fault_injection",
+    "fluidframework_tpu_torch.testing.chaos",
+    "fluidframework_tpu_torch.tools.stress",
+    "fluidframework_tpu_torch.tools.serve_bench",
+)
+
 _CHILD = r"""
 import importlib, json, pkgutil, sys
 import fluidframework_tpu_torch as port
@@ -112,6 +134,12 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import runpy
+sys.argv = ["fluidframework_tpu_torch.service", "--help"]
+try:
+    runpy.run_module("fluidframework_tpu_torch.service", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "fluidframework_tpu" or m.startswith("fluidframework_tpu."))
@@ -127,11 +155,12 @@ def test_port_import_loads_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
-    out = json.loads(proc.stdout)
+    assert "--dump-metrics" in proc.stdout  # the service's --help ran
+    out = json.loads(proc.stdout.splitlines()[-1])
     assert len(out["names"]) >= 20
     assert set(ROUTE_MODULES + TREE_MODULES + POOL_MODULES
-               + MATRIX_MODULES + OBS_MODULES
-               + SERVICE_MODULES) <= set(out["names"])
+               + MATRIX_MODULES + OBS_MODULES + SERVICE_MODULES
+               + INGRESS_MODULES) <= set(out["names"])
     assert out["bad"] == []
 
 
@@ -142,7 +171,8 @@ def _sources():
 def test_source_scan_covers_the_route_modules():
     scanned = set(_sources())
     for name in (ROUTE_MODULES + TREE_MODULES + POOL_MODULES
-                 + MATRIX_MODULES + OBS_MODULES + SERVICE_MODULES):
+                 + MATRIX_MODULES + OBS_MODULES + SERVICE_MODULES
+                 + INGRESS_MODULES):
         path = REPO.joinpath(*name.split(".")).with_suffix(".py")
         assert path in scanned, name
 

@@ -1,8 +1,9 @@
 """The port's observability plane against the JAX package's: the
 registry families the sidecars, pools, tree sidecar, heat ledger, fault
-plane, breaker, profiler and sanitizer register (names, kinds, labels),
-the chaos site vocabulary and the canonical hop table are the
-reference's; the same seeded stream through ``TpuMergeSidecar`` and
+plane, breaker, profiler, sanitizer, service layers, ingress, socket
+driver, qos admission and pressure, SLO engine, federation and serve
+bench register (names, kinds, labels), the chaos site vocabulary and
+the canonical hop table are the reference's; the same seeded stream through ``TpuMergeSidecar`` and
 ``GpuMergeSidecar(device="cpu")`` gives the same flight-record sequence
 and the same hops per message; the heat attribution charges the same
 documents the same milliseconds, conserved per round; the registry
@@ -18,32 +19,42 @@ import numpy as np
 import pytest
 import torch
 
+from fluidframework_tpu.drivers import socket_driver as ref_socket_driver
+from fluidframework_tpu.obs import federation as ref_federation
 from fluidframework_tpu.obs import heat as ref_heat
 from fluidframework_tpu.obs import metrics as ref_metrics
 from fluidframework_tpu.obs import profiler as ref_profiler
+from fluidframework_tpu.obs import slo as ref_slo
 from fluidframework_tpu.obs import trace as ref_trace
 from fluidframework_tpu.obs.timeline import FleetTimeline as RefTimeline
 from fluidframework_tpu.parallel import mesh_pool as ref_mesh_pool
+from fluidframework_tpu.qos import admission as ref_admission
 from fluidframework_tpu.qos import breaker as ref_breaker
 from fluidframework_tpu.qos import faults as ref_faults
+from fluidframework_tpu.qos import pressure as ref_pressure
 from fluidframework_tpu.loader import container as ref_container
 from fluidframework_tpu.runtime import container_runtime as ref_runtime
 from fluidframework_tpu.runtime import op_lifecycle as ref_lifecycle
 from fluidframework_tpu.service import LocalServer, TpuMergeSidecar
+from fluidframework_tpu.service import ingress as ref_ingress
 from fluidframework_tpu.service import lambdas as ref_lambdas
 from fluidframework_tpu.service import sequencer as ref_sequencer
 from fluidframework_tpu.service import storage as ref_storage
 from fluidframework_tpu.service import tpu_sidecar as ref_sidecar
 from fluidframework_tpu.service import tree_sidecar as ref_tree
 from fluidframework_tpu.testing import jitsan as ref_jitsan
+from fluidframework_tpu.tools import serve_bench as ref_serve_bench
+from fluidframework_tpu_torch.drivers import socket_driver
 from fluidframework_tpu_torch.obs import (
     REGISTRY,
     FleetTimeline,
     HeatLedger,
     attribute_round,
+    federation,
     heat,
     metrics,
     profiler,
+    slo,
     trace,
 )
 from fluidframework_tpu_torch.ops import event_graph, merge_chunk
@@ -55,12 +66,13 @@ from fluidframework_tpu_torch.ops.merge_kernel import (
 from fluidframework_tpu_torch.ops.merge_step import fused_step, table_to_state
 from fluidframework_tpu_torch.ops.window_cost import step_ops_per_slot
 from fluidframework_tpu_torch.parallel import mesh_pool
-from fluidframework_tpu_torch.qos import breaker, faults
+from fluidframework_tpu_torch.qos import admission, breaker, faults, pressure
 from fluidframework_tpu_torch.loader import container
 from fluidframework_tpu_torch.runtime import container_runtime, op_lifecycle
 from fluidframework_tpu_torch.service import GpuMergeSidecar
 from fluidframework_tpu_torch.service import (
     gpu_sidecar,
+    ingress,
     lambdas,
     sequencer,
     storage,
@@ -72,6 +84,7 @@ from fluidframework_tpu_torch.testing import (
     record_op_stream,
     windows,
 )
+from fluidframework_tpu_torch.tools import serve_bench
 from test_torch_mesh_pool import (
     _grow_into_pool,
     _hot_rounds,
@@ -82,10 +95,13 @@ from test_torch_mesh_pool import (
 REF_MODULES = (ref_sidecar, ref_mesh_pool, ref_tree, ref_heat, ref_faults,
                ref_breaker, ref_profiler, ref_jitsan, ref_sequencer,
                ref_lambdas, ref_storage, ref_container, ref_runtime,
-               ref_lifecycle)
+               ref_lifecycle, ref_ingress, ref_socket_driver, ref_admission,
+               ref_pressure, ref_slo, ref_federation, ref_serve_bench)
 PORT_MODULES = (gpu_sidecar, mesh_pool, tree_sidecar, heat, faults,
                 breaker, profiler, jitsan, sequencer, lambdas, storage,
-                container, container_runtime, op_lifecycle)
+                container, container_runtime, op_lifecycle, ingress,
+                socket_driver, admission, pressure, slo, federation,
+                serve_bench)
 SITES = ("sidecar.dispatch", "sidecar.pool_dispatch", "sidecar.pool_admit",
          "sidecar.pool_migrate", "tree_sidecar.dispatch",
          "storage.checkpoint_write", "storage.oplog_append", "storage.bitrot")

@@ -7,10 +7,14 @@ the source is rewired to ``fluidframework_tpu_torch`` and nothing else
 changes, so a body cannot drift from the reference's. Every case runs
 twice (``[fluidframework_tpu-...]`` and ``[fluidframework_tpu_torch-...]``).
 
+The helpers here (``mirror_cases``, ``run_mirrored``) serve the other
+mirror files too: a case's parametrize marks are expanded into cases of
+their own, and a fixture the reference module defines for itself is
+built from the same executed source, so it too comes from the package
+under test.
+
 Left out, with the module they wait for (the port does not have it yet):
 
-- ``test_durable_storage.py::test_service_survives_kill_and_restart``:
-  a service subprocess behind the TCP ingress (``service.ingress``);
 - ``test_durable_storage.py::test_queue_commit_offset_is_crash_atomic``,
   ``::test_torn_queue_offset_states_are_pinned``,
   ``::test_queue_record_crc_detected_and_scrubbed``: the partitioned
@@ -36,7 +40,6 @@ MIRRORED = (
 )
 LEFT_OUT = {
     "test_durable_storage": {
-        "test_service_survives_kill_and_restart": "service.ingress",
         "test_queue_commit_offset_is_crash_atomic": "service.partitioning",
         "test_torn_queue_offset_states_are_pinned": "service.partitioning",
         "test_queue_record_crc_detected_and_scrubbed":
@@ -45,16 +48,133 @@ LEFT_OUT = {
 }
 
 
-def _cases() -> list:
+def mirror_cases(mirrored, left_out, by_hand=()) -> list:
+    """``(module, name, params)`` for every test of the ``mirrored``
+    reference modules that is neither left out nor mirrored by hand;
+    a parametrized test gives one case per parameter set (``params``
+    is a tuple of ``(argname, value)``). A test with any other mark
+    must be named in ``left_out`` or ``by_hand``."""
     out = []
-    for module in MIRRORED:
+    for module in mirrored:
         tree = ast.parse((TESTS / f"{module}.py").read_text())
+        defined = {n.name for n in tree.body
+                   if isinstance(n, ast.FunctionDef)}
+        named = set(left_out.get(module, {})) | {
+            n for m, n in by_hand if m == module}
+        assert named <= defined, (module, named - defined)
         for node in tree.body:
-            if (isinstance(node, ast.FunctionDef)
-                    and node.name.startswith("test_")
-                    and node.name not in LEFT_OUT.get(module, {})):
-                out.append((module, node.name))
+            if (not isinstance(node, ast.FunctionDef)
+                    or not node.name.startswith("test_")
+                    or node.name in left_out.get(module, {})
+                    or (module, node.name) in by_hand):
+                continue
+            if not node.decorator_list:
+                out.append((module, node.name, ()))
+                continue
+            fn = _namespace(module, PACKAGES[0])[node.name]
+            sets = [()]
+            for mark in fn.pytestmark:
+                assert mark.name == "parametrize", (
+                    f"{module}::{node.name} carries {mark.name}; "
+                    "mirror it by hand")
+                names, values = mark.args[:2]
+                if isinstance(names, str):
+                    names = [n.strip() for n in names.split(",")]
+                rows = []
+                for v in values:
+                    v = getattr(v, "values", v)
+                    v = tuple(v) if len(names) > 1 else (v,)
+                    rows.append(tuple(zip(names, v)))
+                sets = [a + b for a in sets for b in rows]
+            out.extend((module, node.name, p) for p in sets)
     return out
+
+
+def case_id(value) -> str:
+    if isinstance(value, tuple):
+        return "-".join(f"{k}={v!r}" for k, v in value)[:60] or "-"
+    return str(value)
+
+
+# carries a slow mark: mirrored by hand below, with its mark
+BY_HAND = {("test_durable_storage", "test_service_survives_kill_and_restart")}
+
+
+def _cases() -> list:
+    return [(m, n) for m, n, _ in mirror_cases(MIRRORED, LEFT_OUT,
+                                               BY_HAND)]
+
+
+def _fixture_value(namespace: dict, arg: str, request):
+    """A fixture the mirrored module defines for itself, built from
+    the executed source (so from the package under test); any other
+    fixture comes from pytest."""
+    wrapped = getattr(namespace.get(arg), "_get_wrapped_function", None)
+    if wrapped is None:
+        return request.getfixturevalue(arg)
+    fn = wrapped()
+    value = fn(**{a: _fixture_value(namespace, a, request)
+                  for a in inspect.signature(fn).parameters})
+    if inspect.isgenerator(value):
+        gen = value
+        value = next(gen)
+        request.addfinalizer(lambda: next(gen, None))
+    return value
+
+
+def run_mirrored(package, module, name, request, params=()):
+    """Run one reference test body on ``package``."""
+    namespace = _namespace(module, package)
+    fn = namespace[name]
+    kwargs = dict(params)
+    for arg in inspect.signature(fn).parameters:
+        if arg not in kwargs:
+            kwargs[arg] = _fixture_value(namespace, arg, request)
+    fn(**kwargs)
+
+
+def alfred_fixture(package, monkeypatch):
+    """The ``alfred`` fixture of ``tests/conftest.py`` with the
+    ingress taken from ``package``: ``start(...)`` returns the running
+    server; teardown stops it and joins the thread."""
+    import asyncio
+    import importlib
+    import threading
+
+    state = {}
+    ingress_mod = importlib.import_module(f"{package}.service.ingress")
+
+    def start(tenants=None, server_versions=None, qos=None, slo=None):
+        if server_versions is not None:
+            monkeypatch.setattr(
+                ingress_mod, "WIRE_VERSIONS", tuple(server_versions))
+        server = ingress_mod.AlfredServer(tenants=tenants, qos=qos,
+                                          slo=slo)
+        loop = asyncio.new_event_loop()
+        started = threading.Event()
+
+        def run():
+            asyncio.set_event_loop(loop)
+            loop.run_until_complete(server.start())
+            started.set()
+            loop.run_forever()
+
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        assert started.wait(10)
+        state.update(server=server, loop=loop, thread=t)
+        return server
+
+    yield start
+    if state:
+        fut = asyncio.run_coroutine_threadsafe(
+            state["server"].stop(), state["loop"])
+        try:
+            fut.result(timeout=10)
+        except Exception:
+            pass
+        state["loop"].call_soon_threadsafe(state["loop"].stop)
+        state["thread"].join(timeout=10)
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,5 +204,14 @@ def test_mirrored(package, module, name, request):
     fn = _namespace(module, package)[name]
     assert not getattr(fn, "pytestmark", None), (
         f"{module}::{name} carries marks; mirror it by hand")
-    fn(**{arg: request.getfixturevalue(arg)
-          for arg in inspect.signature(fn).parameters})
+    run_mirrored(package, module, name, request)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("package", PACKAGES)
+def test_service_survives_kill_and_restart(package, request):
+    """The service subprocess (``python -m <package>.service``) is
+    SIGKILLed and restarted on its data dir; the reference's case,
+    with its slow mark."""
+    run_mirrored(package, "test_durable_storage",
+                 "test_service_survives_kill_and_restart", request)
