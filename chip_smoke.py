@@ -39,7 +39,14 @@ the SLO engine, the heat ledger) and multiplexed socket drivers into
 ``GpuMergeSidecar``, starts ``python -m fluidframework_tpu_torch.service``
 and asks its ``--dump-metrics`` and ``--dump-slo``, runs the open-loop
 ``tools/serve_bench`` at bench config9's full width with its sidecar on
-the card, and times the kernel beside its plain version.
+the card, drives the DDS catalogue live through the port's own
+``LocalServer`` and ``Container``s (bench config3's matrices authored
+through real SharedMatrix channels into the matrix plane; bench
+config17's corpus through real SharedTree channels into the tree plane
+on both routes, served live and tiled to 1024 documents; every channel
+type of the registry in one datastore of 128 documents, the string and
+tree channels routed to their planes, late joiners after a summarize),
+and times the kernel beside its plain version.
 
 The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
@@ -80,6 +87,12 @@ CLI:" line the service subprocess and its dump commands. Each "serve"
 line holds one open-loop run (offered, acked and shed ops, latency,
 backlog, pressure tier, the sidecar's round times on the card, the SLO
 verdicts); the "serve:" line the checks and the profiler's overhead.
+Each "dds:" line holds one leg (matrix; tree live and each tiled route;
+mixed): documents, edits or commits and sequenced messages, the rate,
+the host's seconds split into client (authoring, flush, delivery),
+orderer and sidecar or bridge ingest, pack seconds, B1 launches, the
+device's busy time, B1's share of it and idle share over a trace of
+the leg, and the checks.
 The times lines cover the
 window rungs 16 / 32 / 64 at the main shape and the capacities 4096 and
 8192, with the NOOP share and the bound of each timed batch. Every phase
@@ -95,13 +108,16 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import importlib
 import json
+import random
 import statistics
 import subprocess
 import sys
 import threading
 import time
 import traceback
+import types
 
 import numpy as np
 import torch
@@ -387,8 +403,8 @@ def phase_main(seed: int) -> dict:
 
 def _device_busy_ms(prof) -> dict:
     """Device time of a CUDA-only profiler trace: the total, the number
-    of device events (kernel launches and copies), and the five largest
-    event names."""
+    of device events (kernel launches and copies), the five largest
+    event names and the time of every name."""
     by_name, events = {}, 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0)
@@ -397,7 +413,7 @@ def _device_busy_ms(prof) -> dict:
             events += e.count
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return {"total": sum(by_name.values()), "events": events,
-            "top": [(n[:60], ms) for n, ms in top]}
+            "top": [(n[:60], ms) for n, ms in top], "by_name": by_name}
 
 
 # ----------------------------------------------------------------------
@@ -895,6 +911,23 @@ def _check_tree_tiles(sidecar, rec, recorded, route) -> None:
                              f"stream's first row at {diff}")
 
 
+def _check_tree_run(sidecar, rec, recorded, route) -> None:
+    """``run_tree``'s checks: every tile (``_check_tree_tiles``), no
+    document on the host, no ring eviction, one grow (128 -> 256) and no
+    overflow."""
+    _check_tree_tiles(sidecar, rec, recorded, route)
+    if sidecar.host_mode_docs() or sidecar.ring_evict_count:
+        raise AssertionError(
+            f"tree {route}: {sidecar.host_mode_docs()} documents on "
+            f"the host, {sidecar.ring_evict_count} ring evictions")
+    if (sidecar.grow_count, sidecar.capacity) != (1, 2 * TREE_CAPACITY):
+        raise AssertionError(
+            f"tree {route}: {sidecar.grow_count} grows to capacity "
+            f"{sidecar.capacity}, expected one to {2 * TREE_CAPACITY}")
+    if sidecar.overflowed():
+        raise AssertionError(f"tree {route}: a document overflowed")
+
+
 def phase_tree() -> list:
     """Both tree routes over the recorded corpus at 1024 documents:
     every document equals its stream's EditManager replay, the two
@@ -911,17 +944,7 @@ def phase_tree() -> list:
         rec = run_tree(route, recorded)
         run_s = time.perf_counter() - t_run
         sidecar = rec.pop("sidecar")
-        _check_tree_tiles(sidecar, rec, recorded, route)
-        if sidecar.host_mode_docs() or sidecar.ring_evict_count:
-            raise AssertionError(
-                f"tree {route}: {sidecar.host_mode_docs()} documents on "
-                f"the host, {sidecar.ring_evict_count} ring evictions")
-        if (sidecar.grow_count, sidecar.capacity) != (1, 2 * TREE_CAPACITY):
-            raise AssertionError(
-                f"tree {route}: {sidecar.grow_count} grows to capacity "
-                f"{sidecar.capacity}, expected one to {2 * TREE_CAPACITY}")
-        if sidecar.overflowed():
-            raise AssertionError(f"tree {route}: a document overflowed")
+        _check_tree_run(sidecar, rec, recorded, route)
         tables[route] = rec.pop("table")
         if route == "atom":
             held = rec["held"]
@@ -2471,6 +2494,57 @@ class _SelfTimes:
         return timed
 
 
+def session_api(package) -> types.SimpleNamespace:
+    """The entry points a live session drives, taken from ``package``
+    (an imported top-level package; this script hands in the port)."""
+    def mod(name):
+        return importlib.import_module(f"{package.__name__}.{name}")
+
+    tree_fuzz = mod("testing.tree_fuzz")
+    return types.SimpleNamespace(
+        LocalServer=mod("service").LocalServer,
+        factory=mod("drivers").LocalDocumentServiceFactory,
+        Container=mod("loader").Container,
+        types=mod("models").default_registry().types,
+        ACTIONS=mod("testing.dds_fuzz").ACTIONS,
+        node=mod("models.tree").node,
+        random_change_with_moves=tree_fuzz.random_change_with_moves,
+    )
+
+
+def _timed_server(api, times, seed: int):
+    """A ``LocalServer`` on a manual clock whose clients' message and
+    nack callbacks count as "client" host time."""
+    tick = {"t": 1_000_000.0 + seed}
+
+    def clock():
+        tick["t"] += 0.001
+        return tick["t"]
+
+    server = api.LocalServer(clock=clock)
+    connect = server.connect
+
+    def timed_connect(document_id, client_id, on_message, on_nack=None,
+                      **kw):
+        return connect(document_id, client_id,
+                       times.wrap("client", on_message),
+                       on_nack and times.wrap("client", on_nack), **kw)
+
+    server.connect = timed_connect
+    return server, api.factory(server)
+
+
+def _time_orderer(server, doc: str, times, captured=None) -> None:
+    """Time ``doc``'s orderer as "orderer" (its broadcast's callbacks
+    excluded); with ``captured``, a list, capture every message its
+    broadcaster sends into it."""
+    orderer = server.get_orderer(doc)
+    for name in ("submit", "connect", "disconnect"):
+        setattr(orderer, name, times.wrap("orderer", getattr(orderer, name)))
+    if captured is not None:
+        orderer.broadcaster.subscribe(f"capture/{doc}", captured.append)
+
+
 def _service_edit(rng, s) -> None:
     """One edit of the service traffic: insert 4-8 characters (0.6),
     remove at most 8 (0.3), annotate bold (0.1)."""
@@ -2488,18 +2562,19 @@ def _service_edit(rng, s) -> None:
                          {"bold": rng.randint(0, 3)})
 
 
-def _log_stream(log_msgs: list) -> list:
-    """A document's op log as the merge stream the oracle replays: the
-    channel's ops out of the runtime envelope, other runtime ops (the
-    attaches) as NOOPs, system messages as they are."""
+def _log_stream(log_msgs: list, ds_id: str = "d", ch_id: str = "s") -> list:
+    """A document's op log (or broadcast messages) as one channel's
+    stream, the merge stream the oracle replays: the channel's ops out of
+    the runtime envelope, other runtime ops (the attaches, other
+    channels) as NOOPs, system messages as they are."""
     from fluidframework_tpu_torch.protocol.messages import MessageType
 
     out = []
     for msg in log_msgs:
         if msg.type == MessageType.OPERATION:
             env = msg.contents if isinstance(msg.contents, dict) else {}
-            if (env.get("kind", "op") == "op" and env.get("address") == "d"
-                    and env.get("channel") == "s"):
+            if (env.get("kind", "op") == "op" and env.get("address") == ds_id
+                    and env.get("channel") == ch_id):
                 msg = dataclasses.replace(msg, contents=env["contents"])
             else:
                 msg = dataclasses.replace(msg, type=MessageType.NO_OP,
@@ -2536,33 +2611,16 @@ def phase_service(seed: int) -> dict:
     writer per round, an apply per round, a summarize after round 2,
     late joins from the summary. Every document held to both writers,
     to a scalar replay of its op log and (every 8th) to a late joiner."""
-    import random
-
-    from fluidframework_tpu_torch.drivers import LocalDocumentServiceFactory
+    import fluidframework_tpu_torch
     from fluidframework_tpu_torch.loader import Container
     from fluidframework_tpu_torch.ops import cuda_merge
-    from fluidframework_tpu_torch.service import GpuMergeSidecar, LocalServer
+    from fluidframework_tpu_torch.service import GpuMergeSidecar
 
     rng = random.Random(seed)
-    tick = {"t": 1_000_000.0 + seed}
-
-    def clock():  # the server's manual clock
-        tick["t"] += 0.001
-        return tick["t"]
-
     times = _SelfTimes()
     t0 = time.perf_counter()
-    server = LocalServer(clock=clock)
-    connect = server.connect
-
-    def timed_connect(document_id, client_id, on_message, on_nack=None,
-                      **kw):
-        return connect(document_id, client_id,
-                       times.wrap("client", on_message),
-                       on_nack and times.wrap("client", on_nack), **kw)
-
-    server.connect = timed_connect
-    factory = LocalDocumentServiceFactory(server)
+    server, factory = _timed_server(session_api(fluidframework_tpu_torch),
+                                    times, seed)
     sidecar = GpuMergeSidecar(device="cuda", executor="scan",
                               max_docs=SERVICE_DOCS,
                               capacity=SERVICE_CAPACITY,
@@ -2575,10 +2633,7 @@ def phase_service(seed: int) -> dict:
     writers, acks = {}, []
     for doc in docs:
         sidecar.subscribe(server, doc, "d", "s")
-        orderer = server.get_orderer(doc)
-        for name in ("submit", "connect", "disconnect"):
-            setattr(orderer, name,
-                    times.wrap("orderer", getattr(orderer, name)))
+        _time_orderer(server, doc, times)
         with times.part("client"):
             pair = [Container.load(factory.create_document_service(doc),
                                    client_id=f"{doc}-{who}")
@@ -3489,6 +3544,728 @@ def phase_serve() -> dict:
 
 
 # ----------------------------------------------------------------------
+# dds: the DDS catalogue's live sessions into the matrix and tree planes
+
+DDS_MATRIX_MATRICES = 48  # of config3 full's 64: a depth cut that keeps
+# the phase near 180 s on the chip's host (PERF.md section 4)
+DDS_MATRIX_SEED = 1337  # config3's generator seed
+DDS_MATRIX_ROUND_OPS = 64  # ops each writer authors before the flushes
+DDS_TREE_DOCS, DDS_TREE_WRITERS, DDS_TREE_ROUNDS = 32, 3, 24  # config17
+DDS_TREE_SEED = 1700  # config17's generator seed
+DDS_TREE_SEED_NODES, DDS_TREE_SEED_CHUNK = 192, 32  # record_tree_stream's
+DDS_MIXED_DOCS, DDS_MIXED_ROUNDS, DDS_MIXED_SEED = 128, 4, 10
+DDS_MIXED_SUMMARY_ROUND = 2  # writer A of every document summarizes after it
+DDS_MIXED_TREE_NODES = 16  # the mixed leg's tree is seeded with these
+DDS_MIXED_CAPACITY = 256
+
+
+def _tree_sig(tree) -> str:
+    """A SharedTree's root field in the tree sidecar's signature form."""
+    from fluidframework_tpu_torch.models.tree import root_signature
+
+    return root_signature(tree.root().get("root", []))
+
+
+def _matrix_edit(rng, m, kind: str, view: list, run_len: int) -> None:
+    """One SharedMatrix edit at a position drawn against the writer's
+    view; ``view`` is ``[row_count, col_count]``, kept current here (a
+    count read walks the axis)."""
+    rows, cols = view
+    if kind == "rows":
+        m.insert_rows(rng.randint(0, rows), run_len)
+        view[0] += run_len
+    elif kind == "cols":
+        m.insert_cols(rng.randint(0, cols), 1)
+        view[1] += 1
+    elif kind == "remove":
+        m.remove_rows(rng.randrange(rows), 1)
+        view[0] -= 1
+    else:
+        m.set_cell(rng.randrange(rows), rng.randrange(cols),
+                   rng.randint(0, 9999))
+
+
+def matrix_session(api, cfg, seed: int, times) -> list:
+    """bench config3's per-matrix shape authored through live SharedMatrix
+    channels: each of ``cfg.matrices`` documents holds one "sharedmatrix"
+    channel and two writer Containers. Writer A authors config3's axis
+    sequence (``row_runs`` inserts of ``run_len`` rows, ``cols`` single
+    columns, ``removes`` single-row removes) and the first half of the
+    ``cells`` writes, writer B the other half; every position is drawn
+    from ``random.Random(seed)`` against the writer's own view. Each
+    round both writers author up to ``DDS_MATRIX_ROUND_OPS`` ops before
+    either flushes, in an order the seed shuffles, so cell writes race
+    row removes and each other. Returns per matrix its document id, the
+    messages its broadcaster sent, both writers' visible grid (held
+    equal: ``signature()``, the grid ``to_lists()`` gives, read in one
+    walk of each axis rather than one per cell) and the two
+    SharedMatrix channels."""
+    rng = random.Random(seed)
+    server, factory = _timed_server(api, times, seed)
+    out = []
+    for m in range(cfg.matrices):
+        doc = f"matrix-{m}"
+        captured: list = []
+        _time_orderer(server, doc, times, captured)
+        with times.part("client"):
+            a = api.Container.load(factory.create_document_service(doc),
+                                   client_id=f"{doc}-a")
+            ma = a.runtime.create_datastore("d").create_channel(
+                "sharedmatrix", "m")
+            a.flush()
+            b = api.Container.load(factory.create_document_service(doc),
+                                   client_id=f"{doc}-b")
+            mb = b.runtime.get_datastore("d").get_channel("m")
+        half = cfg.cells // 2
+        plans = [
+            (ma, collections.deque(
+                ["rows"] * cfg.row_runs + ["cols"] * cfg.cols
+                + ["remove"] * cfg.removes + ["cell"] * half)),
+            (mb, collections.deque(["cell"] * (cfg.cells - half)))]
+        while plans[0][1] or plans[1][1]:
+            with times.part("client"):
+                authored = 0
+                for mx, plan in plans:
+                    view = [mx.row_count, mx.col_count]
+                    for _ in range(DDS_MATRIX_ROUND_OPS):
+                        if not plan or (plan[0] == "cell" and not (
+                                view[0] and view[1])):
+                            break
+                        _matrix_edit(rng, mx, plan.popleft(), view,
+                                     cfg.run_len)
+                        authored += 1
+                if not authored:
+                    raise AssertionError(f"{doc}: a round authored nothing")
+                order = [a, b]
+                rng.shuffle(order)
+                for c in order:
+                    c.flush()
+        grid = [list(row) for row in ma.signature()]
+        if [list(row) for row in mb.signature()] != grid:
+            raise AssertionError(f"{doc}: the two writers' matrices differ")
+        out.append({"doc": doc, "messages": captured, "grid": grid,
+                    "writers": (ma, mb)})
+    return out
+
+
+def tree_session(api, docs: int, writers: int, rounds: int, seed: int,
+                 times, on_document=None, on_round=None) -> list:
+    """bench config17's corpus through live SharedTree channels: each of
+    ``docs`` documents holds one "sharedtree" channel; writer ``w0``
+    attaches it and seeds ``DDS_TREE_SEED_NODES`` nodes in flushed
+    commits of ``DDS_TREE_SEED_CHUNK`` (as ``record_tree_stream`` does:
+    config17 left its trees empty), then ``writers - 1`` more Containers
+    join. Each of ``rounds`` rounds, document by document, every writer
+    authors ``random_change_with_moves`` (one ``random.Random(seed)``)
+    against its own view before any of them flushes, in a shuffled
+    order. ``on_document(server, doc)`` runs before a document's first
+    edit, ``on_round()`` after the seeding and after every round.
+    Returns per document its id, its broadcast messages, its writers
+    and their converged root signature."""
+    rng = random.Random(seed)
+    server, factory = _timed_server(api, times, seed)
+    sessions = []
+    for d in range(docs):
+        doc = f"tree-{d}"
+        captured: list = []
+        _time_orderer(server, doc, times, captured)
+        if on_document is not None:
+            on_document(server, doc)
+        with times.part("client"):
+            c0 = api.Container.load(factory.create_document_service(doc),
+                                    client_id=f"{doc}-w0")
+            t0 = c0.runtime.create_datastore("d").create_channel(
+                "sharedtree", "t")
+            for start in range(0, DDS_TREE_SEED_NODES, DDS_TREE_SEED_CHUNK):
+                t0.insert_nodes(("root",), start, [
+                    api.node("n", value=v) for v in range(
+                        start, min(start + DDS_TREE_SEED_CHUNK,
+                                   DDS_TREE_SEED_NODES))])
+                c0.flush()
+            pairs = [(c0, t0)]
+            for w in range(1, writers):
+                cw = api.Container.load(
+                    factory.create_document_service(doc),
+                    client_id=f"{doc}-w{w}")
+                pairs.append(
+                    (cw, cw.runtime.get_datastore("d").get_channel("t")))
+        sessions.append({"doc": doc, "messages": captured, "writers": pairs})
+    if on_round is not None:
+        on_round()
+    for rnd in range(rounds):
+        for s in sessions:
+            with times.part("client"):
+                for i, (_c, t) in enumerate(s["writers"]):
+                    t.apply_changeset(api.random_change_with_moves(
+                        rng, t.get_field(("root",)), f"{s['doc']}-r{rnd}w{i}"))
+                order = list(s["writers"])
+                rng.shuffle(order)
+                for c, _t in order:
+                    c.flush()
+        if on_round is not None:
+            on_round()
+    for s in sessions:
+        sigs = {_tree_sig(t) for _c, t in s["writers"]}
+        if len(sigs) != 1:
+            raise AssertionError(f"{s['doc']}: the writers' trees differ")
+        s["signature"] = sigs.pop()
+    return sessions
+
+
+def _mixed_edit(api, rng, type_name: str, ch, cid: str, tag: str,
+                leases: list) -> bool:
+    """One writer's edit of one channel in a mixed round: the DDS fuzz
+    action of its type, or a call of its own API for the types without
+    one. The SharedString takes the service phase's edits and the
+    SharedTree root-field changesets, so that both stay on their device
+    planes (see ``mixed_session``). Returns whether the edit left a
+    SharedDirectory holding "/a/b" but not "/a": the state in which the
+    missing-parent fault (ROADMAP section C) drops remote writes."""
+    if type_name == "shareddirectory":
+        api.ACTIONS[type_name](rng, ch, cid)
+        return (ch.has_sub_directory("b", "/a")
+                and not ch.has_sub_directory("a", "/"))
+    if type_name == "sharedstring":
+        _service_edit(rng, ch)
+    elif type_name == "sharedtree":
+        ch.apply_changeset(api.random_change_with_moves(
+            rng, ch.get_field(("root",)), tag))
+    elif type_name in api.ACTIONS:
+        api.ACTIONS[type_name](rng, ch, cid)
+    elif type_name == "sharedquorum":
+        ch.set(f"q{rng.randrange(4)}", f"{cid}:{rng.randrange(100)}")
+    elif type_name == "taskmanager":
+        task = f"task{rng.randrange(3)}"
+        if ch.queued(task) and rng.random() < 0.5:
+            ch.abandon(task)
+        else:
+            ch.volunteer(task)
+    elif type_name == "consensusorderedcollection":
+        # last round's acquires are sequenced: complete the granted ones
+        for acquire_id in leases:
+            if ch.result_of(acquire_id) is not None:
+                ch.complete(acquire_id)
+        leases.clear()
+        ch.add(rng.randrange(100))
+        leases.append(ch.acquire())
+    elif type_name != "sharedsummaryblock":  # write-once pre-attach
+        raise AssertionError(f"no mixed edit for {type_name!r}")
+    return False
+
+
+def mixed_session(api, docs: int, rounds: int, seed: int, times,
+                  on_document=None, on_round=None) -> dict:
+    """Every channel type of the registry in one datastore: each of
+    ``docs`` documents holds one channel of each type (the channel id is
+    the type name) and two writer Containers. Writer A creates them: the
+    summary block written before its attach (it is write-once pre-attach
+    and has no op path), the tree seeded with ``DDS_MIXED_TREE_NODES``
+    root nodes. Each of ``rounds`` rounds every writer edits every
+    channel once (``_mixed_edit``) before the two flush in a shuffled
+    order; writer A summarizes after round ``DDS_MIXED_SUMMARY_ROUND``;
+    a late joiner loads after the last round. ``on_document(server,
+    doc)`` runs before a document's first message, ``on_round(rnd)``
+    after every round and once more (``rnd = rounds + 1``) after the
+    late joins. The SharedString takes the service phase's edits rather
+    than the fuzz action, whose interval ops a merge sidecar cannot
+    ingest (ROADMAP section C), and the SharedTree root-field changesets
+    rather than the fuzz action's edits of fields the tree plane does
+    not hold (it would serve them from the host). Returns per document
+    its broadcast messages, its three Containers, writer A's summary
+    acks and whether a writer's SharedDirectory ever held a
+    subdirectory without its parent (``orphan_dir``)."""
+    rng = random.Random(seed)
+    server, factory = _timed_server(api, times, seed)
+    sessions = {}
+    for d in range(docs):
+        doc = f"mixed-{d}"
+        captured: list = []
+        _time_orderer(server, doc, times, captured)
+        if on_document is not None:
+            on_document(server, doc)
+        with times.part("client"):
+            a = api.Container.load(factory.create_document_service(doc),
+                                   client_id=f"{doc}-a")
+            ds = a.runtime.create_datastore("d")
+            for type_name in api.types:
+                if type_name == "sharedsummaryblock":
+                    block = ds.registry.get(type_name).create(type_name)
+                    block.set("document", doc)
+                    block.set("seed", seed)
+                    ds.load_channel(type_name, type_name,
+                                    block.summarize_core())
+                    a.runtime.submit_attach("d", type_name, type_name,
+                                            block.summarize_core())
+                else:
+                    ds.create_channel(type_name, type_name)
+            ds.get_channel("sharedtree").insert_nodes(("root",), 0, [
+                api.node("n", value=v) for v in range(DDS_MIXED_TREE_NODES)])
+            a.flush()
+            b = api.Container.load(factory.create_document_service(doc),
+                                   client_id=f"{doc}-b")
+        acks: list = []
+        a.on("summaryAck", acks.append)
+        sessions[doc] = {"messages": captured, "containers": [a, b],
+                         "acks": acks, "leases": {}, "orphan_dir": False}
+    for rnd in range(1, rounds + 1):
+        for doc, s in sessions.items():
+            with times.part("client"):
+                for c in s["containers"]:
+                    ds = c.runtime.get_datastore("d")
+                    leases = s["leases"].setdefault(c.client_id, [])
+                    for type_name in api.types:
+                        if _mixed_edit(api, rng, type_name,
+                                       ds.get_channel(type_name),
+                                       c.client_id, f"{c.client_id}-r{rnd}",
+                                       leases):
+                            s["orphan_dir"] = True
+                order = list(s["containers"])
+                rng.shuffle(order)
+                for c in order:
+                    c.flush()
+        if on_round is not None:
+            on_round(rnd)
+        if rnd == DDS_MIXED_SUMMARY_ROUND:
+            for s in sessions.values():
+                with times.part("client"):
+                    s["containers"][0].summarize()
+    for doc, s in sessions.items():
+        if server.latest_summary(doc) is None:
+            raise AssertionError(f"{doc}: no summary in the scribe's store")
+        with times.part("client"):
+            s["containers"].append(api.Container.load(
+                factory.create_document_service(doc),
+                client_id=f"{doc}-late"))
+    if on_round is not None:
+        on_round(rounds + 1)
+    return sessions
+
+
+def _mixed_form(type_name: str, ch):
+    """What replicas of a channel agree on: its ``summarize_core()`` as
+    sorted-key JSON, but a SharedString's ``signature()`` (text, props,
+    intervals: its summary's segment layout and per-segment seq and
+    attribution form are each replica's own) and a LegacySharedTree's
+    summary without ``edit_count`` (the edits this replica processed,
+    which a load does not restore: ROADMAP section C)."""
+    if type_name == "sharedstring":
+        return repr(ch.signature())
+    summary = json.loads(json.dumps(ch.summarize_core(), default=str))
+    if type_name == "legacysharedtree":
+        summary.pop("edit_count")
+    return json.dumps(summary, sort_keys=True)
+
+
+def _busy_line(busy: dict, wall_s: float) -> str:
+    b1 = sum(ms for name, ms in busy["by_name"].items()
+             if "merge_window" in name)
+    return (f"device trace: busy {busy['total']:.3f} ms of "
+            f"{wall_s * 1e3:.3f} ms, idle share "
+            f"{1 - busy['total'] / (wall_s * 1e3):.6f}, {busy['events']} "
+            f"device events, B1 {b1:.4f} ms")
+
+
+def _dds_matrix(api) -> dict:
+    """The matrix leg: config3's per-matrix shape through live
+    SharedMatrix channels, then the matrix plane on the card."""
+    from fluidframework_tpu_torch.convert import batch_from_numpy
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.ops.host_bridge import fetch
+    from fluidframework_tpu_torch.ops.host_replay import replay_encoded
+    from fluidframework_tpu_torch.ops.matrix_bridge import (
+        MatrixStream, _visible_handles, dispatch_matrix_batch,
+        extract_matrix, pack_matrix_batch,
+    )
+    from fluidframework_tpu_torch.ops.matrix_cells import CellPack
+    from fluidframework_tpu_torch.ops.segment_table import make_table
+    from fluidframework_tpu_torch.testing import MATRIX_SCALES
+
+    cfg = dataclasses.replace(MATRIX_SCALES["full"],
+                              matrices=DDS_MATRIX_MATRICES)
+    times = _SelfTimes()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.start()
+    t1 = time.perf_counter()
+    docs = matrix_session(api, cfg, DDS_MATRIX_SEED, times)
+    session_s = time.perf_counter() - t1
+    with times.part("bridge ingest"):
+        streams = []
+        for d in docs:
+            ms = MatrixStream()
+            for msg in _log_stream(d["messages"], "d", "m"):
+                ms.add_message(msg)
+            streams.append(ms)
+    t_pack = time.perf_counter()
+    batch = pack_matrix_batch(streams)
+    cells = CellPack(cfg.rows, cfg.cols, device="cuda")
+    cells.pack(streams)
+    pack_s = time.perf_counter() - t_pack
+    cuda_merge.LAUNCHES = 0
+    t_dev = time.perf_counter()
+    table = dispatch_matrix_batch(batch, cfg.matrices, capacity=cfg.capacity,
+                                  device="cuda")
+    grid = cells.apply()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = cuda_merge.LAUNCHES
+    prof.stop()
+    device_s, wall_s = t_end - t_dev, t_end - t1
+    busy = _device_busy_ms(prof)
+    host = dict(times.s)
+    messages = sum(len(d["messages"]) for d in docs)
+    edits = cfg.matrices * (cfg.row_runs + cfg.cols + cfg.removes
+                            + cfg.cells)
+    np_table = fetch(table)
+    peak = int(np_table["count"].max())
+    if np_table["overflow"].any():
+        raise AssertionError(
+            f"dds matrix: {int(np_table['overflow'].sum())} axes overflow "
+            f"capacity {cfg.capacity}; peak live segment count {peak}")
+    if launches < 1:
+        raise AssertionError("dds matrix: the axes never launched B1")
+
+    # B1 == plain on the same batch, every field
+    axes = batch_from_numpy(batch, "cuda")
+    D, W = axes.kind.shape
+    where = f"dds matrix axes D={D} C={cfg.capacity} W={W}"
+    want, err = _check_window(make_table(D, cfg.capacity, "cuda"), axes,
+                              where)
+    bad = [f for f, x, y in zip(want._fields, table, want)
+           if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"dispatch output != plain at {where}: fields "
+                             f"{bad}; " + _first_difference(table, want))
+    # every axis == the host replay, every grid == a host LWW, every
+    # matrix == both writers and the host materialization
+    space = cfg.rows * cfg.cols
+    got_grid = grid.cpu().numpy().reshape(cfg.matrices, space)
+    if not np.array_equal(got_grid, _host_cells(cells.keys, space)):
+        raise AssertionError("dds matrix: a cell grid != the host LWW")
+    live_rows = 0
+    for m, (d, ms) in enumerate(zip(docs, streams)):
+        rows = _visible_handles(replay_encoded(ms.rows.ops).as_table(), 0,
+                                ms.row_allocs)
+        cols = _visible_handles(replay_encoded(ms.cols.ops).as_table(), 0,
+                                ms.col_allocs)
+        if (_visible_handles(np_table, 2 * m, ms.row_allocs) != rows
+                or _visible_handles(np_table, 2 * m + 1,
+                                    ms.col_allocs) != cols):
+            raise AssertionError(f"{d['doc']}: an axis != the host replay")
+        got = extract_matrix(np_table, ms, m)
+        if got != d["grid"] or got != _host_matrix(ms, rows, cols):
+            raise AssertionError(f"{d['doc']}: the served matrix != its "
+                                 f"writers' / the host's")
+        live_rows += len(rows)
+    log(f"dds: matrix: {cfg.matrices} documents (config3 full, cut to "
+        f"{cfg.matrices} of 64 matrices) x 2 writer Containers on one "
+        f"sharedmatrix channel, {cfg.row_runs} insert_rows of "
+        f"{cfg.run_len} + {cfg.cols} insert_cols + {cfg.removes} "
+        f"remove_rows by A, {cfg.cells} set_cell split A / B, rounds of "
+        f"{DDS_MATRIX_ROUND_OPS} ops per writer, shuffled flushes: {edits} "
+        f"edits, {messages} sequenced messages; session wall "
+        f"{session_s:.3f} s, {edits / session_s:.1f} edits/s; host s: client "
+        f"{host.get('client', 0.0):.3f} (authoring, flush, delivery), "
+        f"orderer {host.get('orderer', 0.0):.3f}, bridge ingest "
+        f"{host.get('bridge ingest', 0.0):.3f} (envelope rule -> "
+        f"MatrixStream); pack {pack_s:.3f} s (axis batch {D} x "
+        f"{cfg.capacity} x {W}, cell keys {list(cells.keys.shape)}); B1 "
+        f"launches {launches}, dispatch -> cells -> sync {device_s:.3f} s; "
+        + "the leg's " + _busy_line(busy, wall_s)
+        + f"; grid {cfg.matrices} x {cfg.rows} "
+        f"x {cfg.cols}; peak live segments {peak} of {cfg.capacity}, no "
+        f"axis overflow; checks: kernel == plain on the axis batch (every "
+        f"field), every axis == host replay, every grid == host LWW, every "
+        f"matrix ({live_rows} live rows) == both writers' grid "
+        f"(signature()) == the host materialization; leg wall "
+        f"{time.perf_counter() - t0:.3f} s with the checks")
+    return {"launches": launches, "max_abs_err": err}
+
+
+def _dds_tree(api) -> None:
+    """The tree leg: config17's corpus through live SharedTree channels,
+    served live on both routes, then tiled to tree-full's width."""
+    from fluidframework_tpu_torch.service import (
+        ChannelKindRouter, TreeSidecar,
+    )
+
+    times = _SelfTimes()
+    routers = {route: ChannelKindRouter(tree=TreeSidecar(
+        device="cuda", executor=route, max_docs=DDS_TREE_DOCS,
+        capacity=TREE_CAPACITY, max_capacity=TREE_MAX_CAPACITY))
+        for route in TREE_ROUTES}
+    for r in routers.values():
+        r.tree.ingest = times.wrap("sidecar ingest", r.tree.ingest)
+
+    def on_document(server, doc):
+        for r in routers.values():
+            r.subscribe(server, doc)
+
+    # the device trace covers the last rounds only (reading a trace of
+    # every round's 200k device events costs tens of seconds)
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    applies = {"n": 0}
+
+    def on_round():
+        if applies["n"] == 1 + DDS_TREE_ROUNDS - TREE_PROFILED_ROUNDS:
+            torch.cuda.synchronize()
+            prof.start()
+            applies["t_prof"] = time.perf_counter()
+        applies["n"] += 1
+        with times.part("sidecar apply"):
+            for r in routers.values():
+                r.tree.apply()
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sessions = tree_session(api, DDS_TREE_DOCS, DDS_TREE_WRITERS,
+                            DDS_TREE_ROUNDS, DDS_TREE_SEED, times,
+                            on_document, on_round)
+    with times.part("sidecar apply"):
+        for r in routers.values():
+            r.tree.sync()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    live_s, prof_s = t_end - t1, t_end - applies["t_prof"]
+    prof.stop()
+    busy = _device_busy_ms(prof)
+    host = dict(times.s)
+    commits = DDS_TREE_DOCS * DDS_TREE_WRITERS * DDS_TREE_ROUNDS
+    messages = sum(len(s["messages"]) for s in sessions)
+    for s in sessions:
+        if _tree_replay(s["messages"]) != s["signature"]:
+            raise AssertionError(f"{s['doc']}: the writers != the "
+                                 f"EditManager replay of its stream")
+        sigs = {r.tree.signature(s["doc"], "d", "t")
+                for r in routers.values()}
+        if sigs != {s["signature"]}:
+            raise AssertionError(f"{s['doc']}: a live route != the writers")
+    for route, r in routers.items():
+        sc = r.tree
+        if sc.host_mode_docs() or sc.ring_evict_count or sc.overflowed():
+            raise AssertionError(
+                f"dds tree live {route}: {sc.host_mode_docs()} host docs, "
+                f"{sc.ring_evict_count} ring evictions, overflow "
+                f"{sc.overflowed()}")
+    live = {route: r.tree for route, r in routers.items()}
+    log(f"dds: tree live: {DDS_TREE_DOCS} documents (config17 full) x "
+        f"{DDS_TREE_WRITERS} writer Containers on one sharedtree channel, "
+        f"{DDS_TREE_SEED_NODES} seeded nodes, {DDS_TREE_ROUNDS} rounds of "
+        f"random_change_with_moves (Random({DDS_TREE_SEED})), served live "
+        f"through ChannelKindRouter -> TreeSidecar on atom and macro "
+        f"(capacity {TREE_CAPACITY} -> "
+        f"{live['atom'].capacity} / {live['macro'].capacity}): {commits} "
+        f"commits, {messages} sequenced messages; wall {live_s:.3f} s, "
+        f"{commits / live_s:.1f} commits/s; host s: client "
+        f"{host.get('client', 0.0):.3f}, orderer "
+        f"{host.get('orderer', 0.0):.3f}, sidecar ingest (both routes) "
+        f"{host.get('sidecar ingest', 0.0):.3f}, sidecar apply (both) "
+        f"{host.get('sidecar apply', 0.0):.3f} (pack "
+        f"{sum(sc.stats['pack_s'] for sc in live.values()):.3f}); B1 "
+        f"launches 0 (the tree plane is plain torch); the last "
+        f"{TREE_PROFILED_ROUNDS} rounds' "
+        + _busy_line(busy, prof_s) + "; checks: writers converge, every "
+        "stream's EditManager replay == its writers, both routes' "
+        "signature == the writers' on every document, no host document, "
+        f"ring eviction or overflow; leg wall {time.perf_counter() - t0:.3f}"
+        " s with the checks")
+    del routers, live
+
+    # the captured streams tiled to tree-full's width, as "tree:" does
+    recorded = [(s["signature"], s["messages"]) for s in sessions]
+    want_len = TREE_PREFIX + TREE_ROUND * DDS_TREE_ROUNDS
+    if {len(m) for _sig, m in recorded} != {want_len}:
+        raise AssertionError(f"dds tree: stream lengths "
+                             f"{sorted({len(m) for _s, m in recorded})}, "
+                             f"expected {want_len}")
+    tables = {}
+    for route in TREE_ROUTES:
+        t_run = time.perf_counter()
+        rec = run_tree(route, recorded)
+        sidecar = rec.pop("sidecar")
+        _check_tree_run(sidecar, rec, recorded, route)
+        tables[route] = rec.pop("table")
+        busy = rec["busy"]
+        log(f"dds: tree tiled: {route}: the {len(recorded)} live streams "
+            f"tiled to {TREE_DOCS} docs x capacity {TREE_CAPACITY} -> "
+            f"{sidecar.capacity}, ring {sidecar.ring}: {rec['rounds']} "
+            f"rounds, {rec['real']} commits, wall {rec['wall']:.3f} s, "
+            f"{rec['real'] / rec['wall']:.1f} commits/s (ingest "
+            f"{rec['ingest_s']:.3f} s, pack {sidecar.stats['pack_s']:.3f} "
+            f"s); device trace of the last {TREE_PROFILED_ROUNDS} rounds: "
+            f"busy {busy['total']:.3f} ms of {rec['prof_wall'] * 1e3:.3f} "
+            f"ms, idle share "
+            f"{1 - busy['total'] / (rec['prof_wall'] * 1e3):.6f}; every "
+            f"document == its writers' root signature, each row == its "
+            f"stream's first, one grow, no host document, ring eviction "
+            f"or overflow; {time.perf_counter() - t_run:.3f} s with the "
+            f"checks")
+        del sidecar, rec
+    diff = _tree_live_difference(tables["atom"], tables["macro"])
+    if diff is not None:
+        raise AssertionError(f"dds tree: atom and macro tables differ at "
+                             f"{diff}")
+    log("dds: tree tiled: the atom and macro live tables are equal")
+
+
+def _dds_mixed(api) -> dict:
+    """The mixed leg: every channel type in one datastore of each
+    document, the SharedString routed to B1 and the SharedTree to the
+    tree plane, every other type host-side."""
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.service import (
+        ChannelKindRouter, GpuMergeSidecar, TreeSidecar,
+    )
+
+    times = _SelfTimes()
+    merge = GpuMergeSidecar(device="cuda", executor="scan",
+                            max_docs=DDS_MIXED_DOCS,
+                            capacity=DDS_MIXED_CAPACITY)
+    tree = TreeSidecar(device="cuda", max_docs=DDS_MIXED_DOCS,
+                       capacity=TREE_CAPACITY,
+                       max_capacity=TREE_MAX_CAPACITY)
+    guard = _guard_device_half(merge)
+    held = _hold_scan_dispatch(merge)
+    merge.ingest = times.wrap("sidecar ingest", merge.ingest)
+    tree.ingest = times.wrap("sidecar ingest", tree.ingest)
+    router = ChannelKindRouter(merge=merge, tree=tree)
+
+    def on_round(_rnd):
+        with times.part("sidecar apply"):
+            merge.apply()
+            tree.apply()
+
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    t0 = time.perf_counter()
+    cuda_merge.LAUNCHES = 0
+    torch.cuda.synchronize()
+    prof.start()
+    t1 = time.perf_counter()
+    sessions = mixed_session(api, DDS_MIXED_DOCS, DDS_MIXED_ROUNDS,
+                             DDS_MIXED_SEED, times, router.subscribe,
+                             on_round)
+    with times.part("sidecar apply"):
+        merge.sync()
+        tree.sync()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t1
+    prof.stop()
+    launches = cuda_merge.LAUNCHES
+    busy = _device_busy_ms(prof)
+    host = dict(times.s)
+
+    messages = missing_parent = 0
+    orphaned = sum(s["orphan_dir"] for s in sessions.values())
+    for doc, s in sessions.items():
+        a, b, late = s["containers"]
+        messages += len(s["messages"])
+        strings = [c.runtime.get_datastore("d").get_channel("sharedstring")
+                   for c in (a, b, late)]
+        served = merge.text(doc, "d", "sharedstring")
+        if {x.get_text() for x in strings} != {served}:
+            raise AssertionError(f"{doc}: the sidecar's text != the writers' "
+                                 f"and the late joiner's")
+        if len({x.signature() for x in strings}) != 1:
+            raise AssertionError(f"{doc}: the SharedStrings' signatures "
+                                 f"differ")
+        text, sig = _oracle(_log_stream(s["messages"], "d", "sharedstring"))
+        if (text, sig) != (served, merge.signature(doc, "d",
+                                                   "sharedstring")):
+            raise AssertionError(f"{doc}: the sidecar != the replay of its "
+                                 f"stream")
+        trees = {_tree_sig(c.runtime.get_datastore("d")
+                           .get_channel("sharedtree")) for c in (a, b, late)}
+        if trees != {tree.signature(doc, "d", "sharedtree")}:
+            raise AssertionError(f"{doc}: the tree sidecar != the writers'")
+        for t in api.types:
+            chans = [c.runtime.get_datastore("d").get_channel(t)
+                     for c in (a, b, late)]
+            if len({_mixed_form(t, ch) for ch in chans}) == 1:
+                continue
+            if t == "shareddirectory" and s["orphan_dir"]:
+                missing_parent += 1
+                continue
+            raise AssertionError(f"{doc}: {t} differs across the "
+                                 f"Containers")
+        edit_counts = {c.runtime.get_datastore("d").get_channel(
+            "legacysharedtree").summarize_core()["edit_count"]
+            for c in (a, b)}
+        if len(edit_counts) != 1:
+            raise AssertionError(f"{doc}: the writers' legacy tree edit "
+                                 f"counts differ")
+        if not s["acks"]:
+            raise AssertionError(f"{doc}: writer A's summary was not acked")
+    if launches <= 0 or not held or guard["calls"] <= 0:
+        raise AssertionError(f"dds mixed: B1 launches {launches}, held "
+                             f"dispatch {bool(held)}, guarded "
+                             f"{guard['calls']}")
+    for name, sc in (("merge", merge), ("tree", tree)):
+        if sc.host_mode_docs() or sc.overflowed():
+            raise AssertionError(f"dds mixed: the {name} sidecar has "
+                                 f"{sc.host_mode_docs()} host documents")
+    want, err = _check_window(held["table"], held["batch"],
+                              "the dds mixed leg's dispatch")
+    bad = [f for f, x, y in zip(want._fields, held["out"], want)
+           if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"the dds mixed dispatch's output differs from "
+                             f"the plain version's at {bad}")
+    edits = DDS_MIXED_DOCS * DDS_MIXED_ROUNDS * 2 * (len(api.types) - 1)
+    log(f"dds: mixed: {DDS_MIXED_DOCS} documents x one channel of each of "
+        f"the {len(api.types)} registry types in one datastore, 2 writer "
+        f"Containers + a late joiner after writer A's summarize, "
+        f"{DDS_MIXED_ROUNDS} rounds of one edit per writer per type (the "
+        f"summary block written before its attach only): {edits} edits, "
+        f"{messages} sequenced messages; ChannelKindRouter -> "
+        f"GpuMergeSidecar scan {DDS_MIXED_DOCS} x {DDS_MIXED_CAPACITY} "
+        f"(sharedstring) and TreeSidecar {DDS_MIXED_DOCS} x "
+        f"{tree.capacity} (sharedtree), every other type host-side; wall "
+        f"{wall_s:.3f} s, {edits / wall_s:.1f} edits/s; host s: client "
+        f"{host.get('client', 0.0):.3f} (authoring, flush, delivery, "
+        f"summarize, loads), orderer {host.get('orderer', 0.0):.3f}, "
+        f"sidecar ingest {host.get('sidecar ingest', 0.0):.3f}, sidecar "
+        f"apply {host.get('sidecar apply', 0.0):.3f} (merge pack "
+        f"{merge.stats['pack_s']:.3f}, tree pack "
+        f"{tree.stats['pack_s']:.3f}); B1 launches {launches}; "
+        + "the leg's " + _busy_line(busy, wall_s)
+        + f"; checks: on every document the "
+        f"sidecar's text == both writers' == the late joiner's, its "
+        f"signature == the stream's scalar replay, the tree sidecar == the "
+        f"three root signatures, all {len(api.types)} channels equal "
+        f"across the three Containers (summarize_core(); SharedString "
+        f"signature(); LegacySharedTree less edit_count) but the "
+        f"SharedDirectory of {missing_parent} of the {orphaned} documents "
+        f"where a writer held \"/a/b\" without \"/a\" (the reference's "
+        f"missing-parent fault, ROADMAP section C), a summary acked; one "
+        f"dispatch kernel == plain, every field; device half "
+        f"under sync debug 'error' in {guard['calls']} dispatches; leg wall "
+        f"{time.perf_counter() - t0:.3f} s with the checks")
+    return {"launches": launches, "max_abs_err": err}
+
+
+def phase_dds() -> dict:
+    """The DDS catalogue's live sessions on the card: config3's matrices
+    through real SharedMatrix channels into the matrix plane, config17's
+    corpus through real SharedTree channels into the tree plane on both
+    routes (live, then tiled to 1024 documents), and every channel type
+    of the registry in one datastore with the string and tree channels
+    routed to their planes."""
+    import fluidframework_tpu_torch
+
+    api = session_api(fluidframework_tpu_torch)
+    matrix = _dds_matrix(api)
+    _dds_tree(api)
+    mixed = _dds_mixed(api)
+    return {"launches": matrix["launches"] + mixed["launches"],
+            "max_abs_err": max(matrix["max_abs_err"], mixed["max_abs_err"])}
+
+
+# ----------------------------------------------------------------------
 # times at the main path's shape
 
 def _time_ms(fn, reps: int, launches: int = 1) -> list:
@@ -3660,6 +4437,8 @@ def main() -> int:
         mark("ingress")
         serve_rec = phase_serve()
         mark("serve")
+        dds_rec = phase_dds()
+        mark("dds")
         time_rec = phase_time(args.seed)
         mark("times")
         log("phase walls: " + ", ".join(
@@ -3668,7 +4447,7 @@ def main() -> int:
         worst = max(worst, time_rec.pop("max_abs_err"),
                     pool_rec["max_abs_err"], matrix_rec["max_abs_err"],
                     service_rec["max_abs_err"], ingress_rec["max_abs_err"],
-                    serve_rec["max_abs_err"])
+                    serve_rec["max_abs_err"], dds_rec["max_abs_err"])
         paths = {"main path": main_rec["launches"],
                  "matrix": matrix_rec["launches"],
                  "donated runs": donation_rec["launches"],
@@ -3676,7 +4455,8 @@ def main() -> int:
                  "obs runs": obs_rec["launches"],
                  "service": service_rec["launches"],
                  "ingress": ingress_rec["launches"],
-                 "serve": serve_rec["launches"]}
+                 "serve": serve_rec["launches"],
+                 "dds": dds_rec["launches"]}
     except Exception:  # noqa: BLE001 - report any failed phase, exit 1
         traceback.print_exc()
         log("FAIL")

@@ -1,6 +1,13 @@
 """Seeded traffic for the port: the mock collaboration session, the
-op-stream recorders, the tree plane's changeset generators and
-session recorder, and bench config3's matrix streams."""
+op-stream recorders, the generic DDS fuzz engine, the stored-format
+compat matrix, the tree plane's changeset generators and session
+recorder, and bench config3's matrix streams."""
+from .compat import (
+    CompatConfig,
+    compat_matrix,
+    downgrade_channel_summary,
+    import_as_fresh_document,
+)
 from .fuzz import FuzzConfig, record_op_stream, record_sequential_stream
 from .matrix_streams import (
     MATRIX_SCALES,
@@ -17,10 +24,14 @@ from .tree_fuzz import (
 )
 
 __all__ = [
+    "CompatConfig",
     "FuzzConfig",
     "MATRIX_SCALES",
     "MatrixConfig",
     "MockCollabSession",
+    "compat_matrix",
+    "downgrade_channel_summary",
+    "import_as_fresh_document",
     "matrix_messages",
     "random_change_with_moves",
     "random_changeset",

@@ -1,23 +1,25 @@
 """The port's SharedMatrix plane (``ops.matrix_bridge`` axes through the
 window apply, ``ops.matrix_cells`` LWW cells) on the CPU against the
 JAX package: the converged ``to_lists()`` of live SharedMatrix replicas
-recorded through the reference loader, the reference's ``CellPack``
+recorded through the reference loader and through the port's own loader
+and SharedMatrix (held to the reference-recorded sessions), the
+reference's ``CellPack``
 grids, and its axis tables and ``extract_matrix`` at bench config3's
 ``smoke`` and ``cpu`` scales. Exact: the work is integer-only."""
 import dataclasses
+import functools
+import importlib
+import json
 import random
 
 import numpy as np
 import pytest
 import torch
 
-from fluidframework_tpu.drivers import LocalDocumentServiceFactory
-from fluidframework_tpu.loader import Container
 from fluidframework_tpu.ops import fetch as ref_fetch
 from fluidframework_tpu.ops import matrix_bridge as ref_bridge
 from fluidframework_tpu.ops.matrix_cells import CellPack as RefCellPack
 from fluidframework_tpu.protocol.messages import MessageType
-from fluidframework_tpu.service import LocalServer
 from fluidframework_tpu_torch.ops import matrix_bridge
 from fluidframework_tpu_torch.ops.host_bridge import fetch
 from fluidframework_tpu_torch.ops.matrix_bridge import (
@@ -59,13 +61,18 @@ def channel_stream(server, document_id, ds_id, ch_id):
     return out
 
 
-def make_matrix_session(doc="m"):
-    server = LocalServer()
-    factory = LocalDocumentServiceFactory(server)
-    a = Container.load(factory.create_document_service(doc),
-                       client_id="alice")
-    b = Container.load(factory.create_document_service(doc),
-                       client_id="bob")
+def make_matrix_session(doc="m", package="fluidframework_tpu"):
+    """Two writer ``Container``s on one SharedMatrix channel, through
+    ``package``'s ``LocalServer``, local driver and loader."""
+    service = importlib.import_module(f"{package}.service")
+    drivers = importlib.import_module(f"{package}.drivers")
+    loader = importlib.import_module(f"{package}.loader")
+    server = service.LocalServer()
+    factory = drivers.LocalDocumentServiceFactory(server)
+    a = loader.Container.load(factory.create_document_service(doc),
+                              client_id="alice")
+    b = loader.Container.load(factory.create_document_service(doc),
+                              client_id="bob")
     ma = a.runtime.create_datastore("d").create_channel("sharedmatrix", "m")
     a.flush()
     mb = b.runtime.get_datastore("d").get_channel("m")
@@ -82,8 +89,7 @@ def replay_port(server, doc="m"):
     return extract_matrix(np_table, ms, 0)
 
 
-def test_matrix_kernel_basic():
-    server, a, b, ma, mb = make_matrix_session()
+def _basic(a, b, ma, mb):
     ma.insert_rows(0, 3)
     ma.insert_cols(0, 2)
     a.flush()
@@ -92,13 +98,9 @@ def test_matrix_kernel_basic():
     a.flush()
     mb.set_cell(1, 1, "mid")
     b.flush()
-    assert ma.to_lists() == mb.to_lists()
-    assert replay_port(server) == ma.to_lists()
 
 
-def test_matrix_kernel_concurrent_permutation_vs_cells():
-    """Cells commute with concurrent permutation (handle stability)."""
-    server, a, b, ma, mb = make_matrix_session()
+def _permutation_vs_cells(a, b, ma, mb):
     ma.insert_rows(0, 4)
     ma.insert_cols(0, 3)
     a.flush()
@@ -111,12 +113,9 @@ def test_matrix_kernel_concurrent_permutation_vs_cells():
     mb.set_cell(2, 0, "survives")
     a.flush()
     b.flush()
-    assert ma.to_lists() == mb.to_lists()
-    assert replay_port(server) == ma.to_lists()
 
 
-def test_matrix_kernel_concurrent_row_inserts_tiebreak():
-    server, a, b, ma, mb = make_matrix_session()
+def _row_inserts_tiebreak(a, b, ma, mb):
     ma.insert_rows(0, 2)
     ma.insert_cols(0, 1)
     a.flush()
@@ -126,14 +125,10 @@ def test_matrix_kernel_concurrent_row_inserts_tiebreak():
     mb.set_cell(0, 0, "b-row")
     a.flush()
     b.flush()
-    assert ma.to_lists() == mb.to_lists()
-    assert replay_port(server) == ma.to_lists()
 
 
-@pytest.mark.parametrize("seed", range(10))
-def test_matrix_kernel_fuzz(seed):
+def _fuzz(seed, a, b, ma, mb):
     rng = random.Random(seed * 37 + 11)
-    server, a, b, ma, mb = make_matrix_session()
     ma.insert_rows(0, 2)
     ma.insert_cols(0, 2)
     a.flush()
@@ -160,14 +155,9 @@ def test_matrix_kernel_fuzz(seed):
             c.flush()
     a.flush()
     b.flush()
-    assert ma.to_lists() == mb.to_lists(), f"seed {seed} diverged"
-    assert replay_port(server) == ma.to_lists(), f"seed {seed}"
 
 
-def test_matrix_kernel_reconnect_resubmit_handles():
-    """Reconnect resubmission emits GroupOps and split inserts with
-    handle=[alloc, base>0]; the handle derivation tracks both."""
-    server, a, b, ma, mb = make_matrix_session()
+def _reconnect_resubmit(a, b, ma, mb):
     ma.insert_rows(0, 2)
     ma.insert_cols(0, 2)
     a.flush()
@@ -179,8 +169,75 @@ def test_matrix_kernel_reconnect_resubmit_handles():
     a.connect()
     a.flush()
     b.flush()
-    assert ma.to_lists() == mb.to_lists()
+
+
+# the recorded sessions of the reference's test_matrix_kernel
+SESSIONS = {
+    "basic": _basic,
+    "permutation_vs_cells": _permutation_vs_cells,
+    "row_inserts_tiebreak": _row_inserts_tiebreak,
+    **{f"fuzz{seed}": functools.partial(_fuzz, seed) for seed in range(10)},
+    "reconnect_resubmit": _reconnect_resubmit,
+}
+
+
+def _recorded(name, package="fluidframework_tpu"):
+    server, a, b, ma, mb = make_matrix_session(package=package)
+    SESSIONS[name](a, b, ma, mb)
+    assert ma.to_lists() == mb.to_lists(), f"{name} diverged"
+    return server, ma
+
+
+def test_matrix_kernel_basic():
+    server, ma = _recorded("basic")
     assert replay_port(server) == ma.to_lists()
+
+
+def test_matrix_kernel_concurrent_permutation_vs_cells():
+    """Cells commute with concurrent permutation (handle stability)."""
+    server, ma = _recorded("permutation_vs_cells")
+    assert replay_port(server) == ma.to_lists()
+
+
+def test_matrix_kernel_concurrent_row_inserts_tiebreak():
+    server, ma = _recorded("row_inserts_tiebreak")
+    assert replay_port(server) == ma.to_lists()
+
+
+@pytest.mark.parametrize("seed", range(10))
+def test_matrix_kernel_fuzz(seed):
+    server, ma = _recorded(f"fuzz{seed}")
+    assert replay_port(server) == ma.to_lists(), f"seed {seed}"
+
+
+def test_matrix_kernel_reconnect_resubmit_handles():
+    """Reconnect resubmission emits GroupOps and split inserts with
+    handle=[alloc, base>0]; the handle derivation tracks both."""
+    server, ma = _recorded("reconnect_resubmit")
+    assert replay_port(server) == ma.to_lists()
+
+
+def _channel_log(server, package):
+    """The channel stream as sorted-key JSON (each package's own
+    ``encode_contents``), so two packages' op dataclasses compare."""
+    ser = importlib.import_module(f"{package}.protocol.serialization")
+    return [json.dumps([m.sequence_number, m.client_id, int(m.type),
+                        ser.encode_contents(m.contents)], sort_keys=True)
+            for m in channel_stream(server, "m", "d", "m")]
+
+
+@pytest.mark.parametrize("name", SESSIONS)
+def test_port_session_equals_reference(name):
+    """The same session through the port's own loader and SharedMatrix:
+    its channel stream equals the reference-recorded one, both writers'
+    ``to_lists()`` equal the reference's, and the port's matrix plane
+    on the port's stream gives the reference's matrix."""
+    ref_server, ref_ma = _recorded(name)
+    server, ma = _recorded(name, "fluidframework_tpu_torch")
+    assert (_channel_log(server, "fluidframework_tpu_torch")
+            == _channel_log(ref_server, "fluidframework_tpu"))
+    assert ma.to_lists() == ref_ma.to_lists()
+    assert replay_port(server) == ref_ma.to_lists()
 
 
 # ---- device cell path: sort + last-wins ------------------------------

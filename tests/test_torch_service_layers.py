@@ -72,22 +72,41 @@ def mirror_cases(mirrored, left_out, by_hand=()) -> list:
                 out.append((module, node.name, ()))
                 continue
             fn = _namespace(module, PACKAGES[0])[node.name]
-            sets = [()]
             for mark in fn.pytestmark:
                 assert mark.name == "parametrize", (
                     f"{module}::{node.name} carries {mark.name}; "
                     "mirror it by hand")
-                names, values = mark.args[:2]
-                if isinstance(names, str):
-                    names = [n.strip() for n in names.split(",")]
-                rows = []
-                for v in values:
-                    v = getattr(v, "values", v)
-                    v = tuple(v) if len(names) > 1 else (v,)
-                    rows.append(tuple(zip(names, v)))
-                sets = [a + b for a in sets for b in rows]
-            out.extend((module, node.name, p) for p in sets)
+            for p, marks in _param_rows(fn):
+                case = (module, node.name, p)
+                out.append(pytest.param(*case, marks=marks) if marks
+                           else case)
     return out
+
+
+def _param_rows(fn) -> list:
+    """``(params, marks)`` for each parameter set of ``fn``'s
+    parametrize marks, in order; ``marks`` are those its
+    ``pytest.param`` values carry (a slow-marked seed stays slow)."""
+    sets = [((), ())]
+    for mark in getattr(fn, "pytestmark", ()):
+        names, values = mark.args[:2]
+        if isinstance(names, str):
+            names = [n.strip() for n in names.split(",")]
+        rows = []
+        for v in values:
+            marks = tuple(getattr(v, "marks", ()))
+            if hasattr(v, "values"):  # a pytest.param
+                v = tuple(v.values)
+            else:
+                v = tuple(v) if len(names) > 1 else (v,)
+            rows.append((tuple(zip(names, v)), marks))
+        sets = [(a + b, am + bm) for a, am in sets for b, bm in rows]
+    return sets
+
+
+def _param_sets(fn) -> list:
+    """The parameter sets of ``fn``'s parametrize marks, in order."""
+    return [p for p, _marks in _param_rows(fn)]
 
 
 def case_id(value) -> str:
@@ -122,10 +141,17 @@ def _fixture_value(namespace: dict, arg: str, request):
     return value
 
 
-def run_mirrored(package, module, name, request, params=()):
-    """Run one reference test body on ``package``."""
-    namespace = _namespace(module, package)
+def run_mirrored(package, module, name, request, params=(), edits=()):
+    """Run one reference test body on ``package``. A parameter set
+    (from the reference's marks) is taken at the same position from the
+    package's own marks, so a parameter built by the package (a config
+    object, a factory) comes from the package under test. ``edits``
+    are ``(old, new)`` replacements of the rewired source."""
+    namespace = _namespace(module, package, tuple(edits))
     fn = namespace[name]
+    if params:
+        ref = _param_sets(_namespace(module, PACKAGES[0])[name])
+        params = _param_sets(fn)[ref.index(tuple(params))]
     kwargs = dict(params)
     for arg in inspect.signature(fn).parameters:
         if arg not in kwargs:
@@ -178,11 +204,15 @@ def alfred_fixture(package, monkeypatch):
 
 
 @functools.lru_cache(maxsize=None)
-def _namespace(module: str, package: str) -> dict:
+def _namespace(module: str, package: str, edits: tuple = ()) -> dict:
     """The reference test module's namespace, its imports taken from
-    ``package``."""
+    ``package``, with ``edits`` (``(old, new)`` pairs, each of which
+    must occur) applied to the rewired source."""
     path = TESTS / f"{module}.py"
     source = re.sub(r"\bfluidframework_tpu\b", package, path.read_text())
+    for old, new in edits:
+        assert old in source, (module, old)
+        source = source.replace(old, new)
     namespace = {"__name__": f"{module}[{package}]", "__file__": str(path)}
     exec(compile(source, f"{path}[{package}]", "exec"), namespace)
     return namespace
