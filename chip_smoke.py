@@ -5,9 +5,13 @@
 Builds the Hopper window kernel from the sources in this checkout, holds
 it bit for bit against its plain torch version on the card, drives the
 SharedString merge plane end to end through ``GpuMergeSidecar`` at the
-full width of bench config2 (4096 documents x capacity 1024, 4 clients
-x 220 steps of seeded traffic) and checks every distinct stream against
-the scalar ``MergeTreeClient`` oracle, drives the three executor routes
+full width of bench config2 (4096 documents x capacity 1024, bench's
+own corpus: 16 streams of 4 clients x 220 steps, every fourth a
+webflow-mix stream of tag-pair markers) and checks every distinct stream
+against the scalar ``MergeTreeClient`` oracle, runs the reference's
+adversarial fuzz (four storms over every seed of their sweeps and five
+directed merge-tree scenarios) through the kernel against its plain
+version and the oracle, drives the three executor routes
 (scan, chunked, egwalker) over bench config14's four corpora at its
 full width (1024 documents x capacity 512, rounds of 8 messages) and
 holds one egwalker suffix window per corpus, after its walker stage,
@@ -18,7 +22,7 @@ streams tiled to 1024 documents (capacity 128, grown once to 256)
 against the scalar ``EditManager``, drives the pool tiers (16 long
 documents of 1024 admitted to a one-shard ``MeshShardedPool`` at
 capacity 8192 through the sidecar; bench config10's mesh pool on 1, 2
-and 4 shards and its viral-member migration; the sequence-sharded
+and 4 shards and its viral-member migration, on bench's corpus; the sequence-sharded
 window at 64 x 4096 x 64 on 2 and 4 shards against the kernel; a
 2-shard ``SeqShardedPool`` serving 4 long documents), drives the
 SharedMatrix plane at bench config3's full width (64 matrices of 10250
@@ -27,26 +31,33 @@ cells as one LWW sort and scatter) against the host replay, a host LWW
 and a host materialization of every matrix, runs the main path and
 config14's mixed corpus on both macro-step routes with the donated
 double buffer on and off, walks ``prewarm``'s capacity x window ladder
-at the main path's shape, reruns the main path with every observability
+at the main path's shape (these and the obs phase rerun the main path's
+corpus), reruns the main path with every observability
 and protection hook on under one torch.profiler trace and drives chaos
 at the merge sidecar's, a mesh pool's and the tree sidecar's seams,
 serves a live collaborative session through the port's own
 ``LocalServer``, local driver and ``Container``s into
 ``GpuMergeSidecar`` (1024 documents x 2 writers x 4 rounds of 8 edits,
-a summarize, late joins from the summary), serves the same traffic live
+a ``SummaryManager`` on every writer, a ``GarbageCollector`` on every
+runtime, an ``OpStreamAttributor`` on writer B, late joins from the
+elected writer's summary), serves the same traffic live
 over TCP through the port's ``AlfredServer`` (tenancy, qos admission,
 the SLO engine, the heat ledger) and multiplexed socket drivers into
 ``GpuMergeSidecar``, starts ``python -m fluidframework_tpu_torch.service``
 and asks its ``--dump-metrics`` and ``--dump-slo``, runs the open-loop
 ``tools/serve_bench`` at bench config9's full width with its sidecar on
-the card, drives the DDS catalogue live through the port's own
+the card and the heat plane's per-tenant rollup on, drives the DDS
+catalogue live through the port's own
 ``LocalServer`` and ``Container``s (bench config3's matrices authored
 through real SharedMatrix channels into the matrix plane; bench
 config17's corpus through real SharedTree channels into the tree plane
 on both routes, served live and tiled to 1024 documents; every channel
 type of the registry in one datastore of 128 documents, the string and
 tree channels routed to their planes, late joiners after a summarize),
-and times the kernel beside its plain version.
+serves 1024 documents made through the framework's
+``LocalServiceClient`` to two editors each (rich text with undo/redo,
+webflow) into ``GpuMergeSidecar``, and times the kernel beside its
+plain version.
 
 The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
@@ -92,7 +103,11 @@ mixed): documents, edits or commits and sequenced messages, the rate,
 the host's seconds split into client (authoring, flush, delivery),
 orderer and sidecar or bridge ingest, pack seconds, B1 launches, the
 device's busy time, B1's share of it and idle share over a trace of
-the leg, and the checks.
+the leg, and the checks. The "fuzz:" line holds each batch's shape and
+the checks; the "framework:" line the documents, workload steps and
+sequenced messages, the undo / redo counts, the comments skipped (an
+interval op into a merge sidecar raises in both packages), steps per
+wall second, the host split, the device trace and the checks.
 The times lines cover the
 window rungs 16 / 32 / 64 at the main shape and the capacities 4096 and
 8192, with the NOOP share and the bound of each timed batch. Every phase
@@ -110,6 +125,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import math
 import random
 import statistics
 import subprocess
@@ -285,13 +301,52 @@ def _check_docs(sidecar, docs_streams) -> None:
             raise AssertionError(f"{doc}: signature differs from the oracle")
 
 
-def config2_corpus(seed: int) -> list:
-    """The main path's 16 distinct streams (4 clients x 220 steps)."""
-    from fluidframework_tpu_torch.testing import FuzzConfig, record_op_stream
+def bench_streams(n_streams: int, steps: int, clients: int,
+                  seed0: int) -> list:
+    """bench.py's corpus (``_build_streams``, bench.py:111-139), the raw
+    recorded streams: stream ``i`` is a webflow-mix stream
+    (``record_flow_stream``: tag-pair markers with ``pairId`` props,
+    pair-consistent removes, css token-list annotates, block markers)
+    when ``i % 4 == 3``, else the fuzz mix at bench's weights (insert
+    0.55, remove 0.25, annotate 0.05, process 0.15); seeds ``seed0 +
+    i``."""
+    from fluidframework_tpu_torch.testing import (
+        FuzzConfig, record_flow_stream, record_op_stream,
+    )
 
-    return [record_op_stream(FuzzConfig(
-        n_clients=4, n_steps=220, seed=seed * 1000 + i))[1]
-        for i in range(16)]
+    return [record_flow_stream(seed=seed0 + i, n_clients=clients,
+                               n_steps=steps)[1] if i % 4 == 3
+            else record_op_stream(FuzzConfig(
+                n_clients=clients, n_steps=steps, seed=seed0 + i,
+                insert_weight=0.55, remove_weight=0.25,
+                annotate_weight=0.05, process_weight=0.15))[1]
+            for i in range(n_streams)]
+
+
+def config2_corpus(seed: int) -> list:
+    """The main path's 16 distinct streams: bench config2's corpus
+    (``_build_streams(16, 220, 4, seed0=31337)``, bench.py:672-674) at
+    ``--seed 0``, its seeds moved by 1000 per seed otherwise."""
+    return bench_streams(16, 220, 4, 31337 + 1000 * seed)
+
+
+def _flow_line(raw: list) -> str:
+    """The flow streams' (every fourth) marker share of their ops and
+    the property keys the corpus uses."""
+    from fluidframework_tpu_torch.ops.host_bridge import encode_stream
+    from fluidframework_tpu_torch.protocol.messages import MessageType
+
+    ops = markers = 0
+    for stream in raw[3::4]:
+        for msg in stream:
+            if msg.type == MessageType.OPERATION:
+                ops += 1
+                markers += getattr(msg.contents, "marker", None) is not None
+    keys = sorted({k for stream in raw
+                   for k in encode_stream(stream).prop_keys})
+    return (f"{len(raw[3::4])} flow streams (every fourth): {markers} of "
+            f"{ops} ops insert a marker ({markers / ops:.4f}); property "
+            f"keys of the corpus {keys}")
 
 
 def _alloc_count() -> int:
@@ -388,6 +443,7 @@ def phase_main(seed: int) -> dict:
         f"{sidecar.grow_count}, donate {sidecar.donate}; peak device "
         f"memory {run['peak_mib']:.1f} MiB, allocator requests "
         f"{run['allocs']}; {n_distinct} streams == oracle")
+    log(f"main path corpus: bench config2's, {_flow_line(raw)}")
     if busy["total"] > 0:
         log(f"main path device trace: busy {busy['total']:.3f} ms of wall "
             f"{wall * 1e3:.3f} ms, idle share "
@@ -399,6 +455,146 @@ def phase_main(seed: int) -> dict:
     return {"launches": launches, "rounds": rounds, "real_ops": real,
             "wall_s": wall, "raw": raw, "run": run,
             "served": _served(sidecar, doc_ids[:n_distinct])}
+
+
+# ----------------------------------------------------------------------
+# fuzz: the main path's adversarial fuzz (the reference's
+# tests/test_adversarial_fuzz.py:78-194) through B1 on the card
+
+# (name, seeds, stream seed = base + seed * step, FuzzConfig fields)
+FUZZ_STORMS = (
+    ("eight clients, deep concurrency", 40, 10_000, 13, dict(
+        n_clients=8, n_steps=220, insert_weight=0.45, remove_weight=0.3,
+        annotate_weight=0.1, process_weight=0.15)),
+    ("overlap-remove storm", 30, 20_000, 7, dict(
+        n_clients=6, n_steps=200, insert_weight=0.3, remove_weight=0.55,
+        annotate_weight=0.05, process_weight=0.1)),
+    ("annotate storm with insert props", 30, 30_000, 11, dict(
+        n_clients=5, n_steps=200, insert_weight=0.35, remove_weight=0.15,
+        annotate_weight=0.35, process_weight=0.15,
+        insert_props_weight=0.5)),
+    ("msn-boundary churn", 20, 40_000, 3, dict(
+        n_clients=4, n_steps=250, insert_weight=0.4, remove_weight=0.25,
+        annotate_weight=0.05, process_weight=0.3)),
+)
+# the directed scenarios, clients A, B, C; None is a process_all
+FUZZ_DIRECTED = (
+    ("same-position insert storm", (
+        ("A", "insert_text_local", 0, "a1"), ("B", "insert_text_local", 0,
+                                              "b1"),
+        ("C", "insert_text_local", 0, "c1"), None,
+        ("A", "insert_text_local", 0, "a2"), ("B", "insert_text_local", 0,
+                                              "b2"),
+        ("C", "insert_text_local", 0, "c2"), None)),
+    ("overlapping removes with an interleaved insert", (
+        ("A", "insert_text_local", 0, "0123456789"), None,
+        ("A", "remove_range_local", 2, 8), ("B", "remove_range_local", 4,
+                                            10),
+        ("C", "insert_text_local", 5, "XYZ"), None)),
+    ("annotate vs a concurrent remove", (
+        ("A", "insert_text_local", 0, "hello world"), None,
+        ("A", "annotate_range_local", 0, 11, {"bold": 1}),
+        ("B", "remove_range_local", 5, 11), None)),
+    ("insert at the zamboni boundary", (
+        ("A", "insert_text_local", 0, "abcdef"), None,
+        ("A", "remove_range_local", 0, 3), None,
+        ("B", "insert_text_local", 0, "B"), ("C", "insert_text_local", 3,
+                                             "C"), None)),
+    ("remove, then a same-spot insert race", (
+        ("A", "insert_text_local", 0, "0123456789"), None,
+        ("A", "remove_range_local", 3, 7), ("B", "insert_text_local", 5,
+                                            "!!"),
+        ("C", "remove_range_local", 6, 9), None)),
+)
+FUZZ_CAPACITY = 1024  # the reference test's table
+
+
+def _directed_stream(steps) -> list:
+    from fluidframework_tpu_torch.testing import MockCollabSession
+
+    log_msgs = []
+    session = MockCollabSession(["A", "B", "C"], stream_log=log_msgs)
+    for step in steps:
+        if step is None:
+            session.process_all()
+        else:
+            session.do(*step)
+    session.assert_converged()
+    return log_msgs
+
+
+def _fuzz_batch(streams: list, what: str) -> tuple:
+    """One batch of ``streams`` (a document each) through B1 on the card:
+    every field == the plain version, every document's text and interned
+    signature == its ``MergeTreeClient`` oracle. Returns B1's launches
+    and the window."""
+    from fluidframework_tpu_torch.convert import batch_from_numpy
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.ops.host_bridge import (
+        build_batch, encode_stream, extract_signature, extract_text, fetch,
+    )
+    from fluidframework_tpu_torch.ops.merge_kernel import (
+        apply_window, apply_window_plain,
+    )
+    from fluidframework_tpu_torch.ops.segment_table import make_table
+
+    encs = [encode_stream(s) for s in streams]
+    batch = batch_from_numpy(build_batch(encs), "cuda")
+    table = make_table(len(encs), FUZZ_CAPACITY, "cuda")
+    before = cuda_merge.LAUNCHES
+    got = apply_window(table, batch)
+    launches = cuda_merge.LAUNCHES - before
+    want = apply_window_plain(table, batch)
+    torch.cuda.synchronize()
+    bad = [f for f, x, y in zip(want._fields, got, want)
+           if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"fuzz {what}: kernel != plain at {bad}; "
+                             + _first_difference(got, want))
+    err = max_abs_err(got, want)
+    table_np = fetch(got)
+    if table_np["overflow"].any():
+        raise AssertionError(f"fuzz {what}: a document overflowed")
+    for d, (stream, enc) in enumerate(zip(streams, encs)):
+        if (extract_text(table_np, enc, d),
+                extract_signature(table_np, enc, d)) != _oracle(stream):
+            raise AssertionError(f"fuzz {what}: document {d} differs from "
+                                 f"its oracle")
+    return launches, batch.kind.shape[1], err
+
+
+def phase_fuzz() -> dict:
+    """The four adversarial storms over every seed of the reference's
+    sweeps (120 streams) and the five directed merge-tree scenarios, one
+    B1 batch each, held to the plain version and the oracle."""
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.testing import FuzzConfig, record_op_stream
+
+    t0 = time.perf_counter()
+    cuda_merge.LAUNCHES = 0
+    launches, worst, lines = 0, 0, []
+    for name, seeds, base, step, fields in FUZZ_STORMS:
+        streams = [record_op_stream(FuzzConfig(
+            seed=base + s * step, **fields))[1] for s in range(seeds)]
+        n, window, err = _fuzz_batch(streams, name)
+        launches, worst = launches + n, max(worst, err)
+        lines.append(f"{name} {seeds} x {FUZZ_CAPACITY} x {window}")
+    streams = [_directed_stream(steps) for _, steps in FUZZ_DIRECTED]
+    n, window, err = _fuzz_batch(streams, "directed scenarios")
+    launches, worst = launches + n, max(worst, err)
+    lines.append(f"directed {len(streams)} x {FUZZ_CAPACITY} x {window}")
+    if launches != len(FUZZ_STORMS) + 1:
+        raise AssertionError(f"fuzz: B1 launches {launches}")
+    log(f"fuzz: the reference's adversarial fuzz on the card, one B1 batch "
+        f"each ({'; '.join(lines)}): "
+        f"{sum(s for _, s, _, _, _ in FUZZ_STORMS)} storm streams and "
+        f"{len(FUZZ_DIRECTED)} directed scenarios ("
+        + ", ".join(n for n, _ in FUZZ_DIRECTED)
+        + f"); every batch's B1 output == the plain version's, every "
+        f"field; every document's text and interned signature == its "
+        f"MergeTreeClient oracle; no overflow; B1 launches {launches}; "
+        f"wall {time.perf_counter() - t0:.3f} s")
+    return {"launches": launches, "max_abs_err": worst}
 
 
 def _device_busy_ms(prof) -> dict:
@@ -1250,14 +1446,12 @@ def phase_pool_migration():
     )
     from fluidframework_tpu_torch.parallel import make_mesh
     from fluidframework_tpu_torch.service.gpu_sidecar import select_pool
-    from fluidframework_tpu_torch.testing import FuzzConfig, record_op_stream
 
     kmax = 4
-    encs = [encode_stream(record_op_stream(FuzzConfig(
-        n_clients=2, n_steps=MIG_STEPS, seed=4200 + i, insert_weight=0.55,
-        remove_weight=0.25, annotate_weight=0.05, process_weight=0.15))[1])
-        for i in range(MIG_MEMBERS * kmax)]
-    rates = []
+    # bench config10's corpus (bench.py:1922-1923), its flow quarter too
+    raw = bench_streams(MIG_MEMBERS * kmax, MIG_STEPS, 2, 4200)
+    encs = [encode_stream(stream) for stream in raw]
+    rates, launches = [], 0
     for k in (1, 2, kmax):
         devices = _shard_devices(k)
         pool = select_pool(make_mesh(devices), MIG_CAPACITY, route="mesh")
@@ -1280,6 +1474,7 @@ def phase_pool_migration():
             raise AssertionError(f"config10 on {k} shards: merge_window "
                                  f"launches {cuda_merge.LAUNCHES} in {done} "
                                  "dispatches")
+        launches += cuda_merge.LAUNCHES
         rates.append(f"{k} shard{'s' if k > 1 else ''} "
                      f"{[str(d) for d in devices]}: {n} members, {done} "
                      f"rounds in {wall:.3f} s, {done / wall:.1f} rounds/s "
@@ -1288,8 +1483,7 @@ def phase_pool_migration():
     shared = len(set(devices)) < kmax
     log(f"pool: config10 mesh pool at capacity {MIG_CAPACITY}, "
         f"{MIG_OPS} ops per member per round, {MIG_STEPS}-step two-client "
-        f"streams (the fuzz mix only: the flow-mix quarter needs the "
-        f"flowdoc layer, not ported): " + "; ".join(rates)
+        f"streams (bench's corpus: {_flow_line(raw)}): " + "; ".join(rates)
         + ("; same-device shards (one card), not a scaling figure"
            if shared else ""))
 
@@ -1297,6 +1491,7 @@ def phase_pool_migration():
     pool = select_pool(make_mesh(devices), MIG_CAPACITY, route="mesh")
     oracle = select_pool(make_mesh(devices[:1]), MIG_CAPACITY, route="mesh")
     streams, fulls = _prefixed(encs, n_par, MIG_ROUNDS, MIG_OPS)
+    cuda_merge.LAUNCHES = 0
     pool.admit(list(range(n_par)), streams)
     oracle.admit(list(range(n_par)), streams)
     rounds = 0
@@ -1309,6 +1504,7 @@ def phase_pool_migration():
     if pool.migration_count == 0 or oracle.migration_count != 0:
         raise AssertionError(f"migrations: {pool.migration_count} on "
                              f"{kmax} shards, {oracle.migration_count} on one")
+    launches += cuda_merge.LAUNCHES
     fetched, o_fetched = pool.fetch(), oracle.fetch()
     for slot in range(n_par):
         host = MergeTreeClient("oracle")
@@ -1324,8 +1520,9 @@ def phase_pool_migration():
         f"{[str(d) for d in devices]}: {pool.migration_count} migration(s) "
         f"in {rounds} rounds, the one-shard pool {oracle.migration_count}; "
         f"shard members {[len(m) for m in pool.shard_members]}; all {n_par} "
-        f"members == the one-shard pool == the oracle")
-    return pool
+        f"members == the one-shard pool == the oracle; B1 launches of "
+        f"config10's runs {launches}")
+    return pool, launches
 
 
 def _program_times(fn, calls: int = 10) -> tuple:
@@ -1567,7 +1764,7 @@ def phase_pool(seed: int) -> dict:
         f"steps recorded in {marks[-1][1] - marks[0][1]:.3f} s (host)")
     rec = phase_pool_longdoc(seed, long_raw)
     marks.append(("long-document tier", time.perf_counter()))
-    pool = phase_pool_migration()
+    pool, rec["config10_launches"] = phase_pool_migration()
     marks.append(("config10", time.perf_counter()))
     time_pool_programs(pool)
     marks.append(("pool programs", time.perf_counter()))
@@ -2455,7 +2652,7 @@ def phase_obs(main_rec: dict, recorded: list) -> dict:
 
 SERVICE_DOCS, SERVICE_CAPACITY, SERVICE_MAX_CAPACITY = 1024, 512, 8192
 SERVICE_WRITERS, SERVICE_ROUNDS, SERVICE_EDITS = ("a", "b"), 4, 8
-SERVICE_SUMMARY_ROUND = 2  # writer A of every document summarizes after it
+SERVICE_SUMMARY_ROUND = 2  # the elected writer summarizes after it
 SERVICE_PROFILED_ROUNDS = 2  # the device trace's last rounds
 SERVICE_LATE_EVERY = 8  # a third Container loads every 8th document
 
@@ -2608,12 +2805,26 @@ def phase_service(seed: int) -> dict:
     documents, two writer Containers each on the port's LocalServer and
     local driver, GpuMergeSidecar subscribed to every document's
     ("d", "s") channel; 4 rounds of 8 edits per writer, a flush per
-    writer per round, an apply per round, a summarize after round 2,
-    late joins from the summary. Every document held to both writers,
-    to a scalar replay of its op log and (every 8th) to a late joiner."""
+    writer per round, an apply per round, late joins from the summary.
+    Every writer runs a ``SummaryManager`` whose heuristics fire on a
+    session clock that moves once, after round 2, so the elected writer
+    (A, the first to join) summarizes there; every runtime has a
+    ``GarbageCollector`` (writer A also attaches an unreferenced
+    datastore, whose unreferenced-since time the summaries carry), and
+    writer B an ``OpStreamAttributor``. Every document held to both
+    writers, to a scalar replay of its op log and (every 8th) to a late
+    joiner."""
     import fluidframework_tpu_torch
     from fluidframework_tpu_torch.loader import Container
     from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.protocol.messages import MessageType
+    from fluidframework_tpu_torch.runtime import (
+        SummarizerHeuristics, SummaryManager,
+    )
+    from fluidframework_tpu_torch.runtime.attribution import (
+        Attributor, OpStreamAttributor,
+    )
+    from fluidframework_tpu_torch.runtime.gc import GarbageCollector
     from fluidframework_tpu_torch.service import GpuMergeSidecar
 
     rng = random.Random(seed)
@@ -2630,7 +2841,15 @@ def phase_service(seed: int) -> dict:
     # the sidecar's ingest runs inside the orderer's broadcast
     sidecar.ingest = times.wrap("sidecar ingest", sidecar.ingest)
     docs = [f"svc-{d}" for d in range(SERVICE_DOCS)]
-    writers, acks = {}, []
+    # the summarizers' clock: still until the summary point
+    session_clock = {"t": 0.0}
+
+    def heuristics():
+        return SummarizerHeuristics(
+            max_ops=1 << 30, max_time_s=1.0,
+            clock=lambda: session_clock["t"])
+
+    writers, acks, managers, collectors, attributors = {}, [], {}, {}, {}
     for doc in docs:
         sidecar.subscribe(server, doc, "d", "s")
         _time_orderer(server, doc, times)
@@ -2638,8 +2857,14 @@ def phase_service(seed: int) -> dict:
             pair = [Container.load(factory.create_document_service(doc),
                                    client_id=f"{doc}-{who}")
                     for who in SERVICE_WRITERS]
+            managers[doc] = [SummaryManager(c, heuristics_factory=heuristics)
+                             for c in pair]
+            collectors[doc] = [GarbageCollector(
+                c.runtime, clock=lambda: session_clock["t"]) for c in pair]
+            attributors[doc] = OpStreamAttributor(pair[1])
             pair[0].runtime.create_datastore("d").create_channel(
                 "sharedstring", "s")
+            pair[0].runtime.create_datastore("side", root=False)
             pair[0].flush()
             pair[0].on("summaryAck", acks.append)
         writers[doc] = pair
@@ -2676,11 +2901,15 @@ def phase_service(seed: int) -> dict:
         sidecar.apply()
         apply_s += time.perf_counter() - t_apply
         if rnd == SERVICE_SUMMARY_ROUND:
+            session_clock["t"] = 1.0
             for doc in docs:
                 # the op log up to here: the summary's ack truncates it
                 logged[doc] = server.read_ops(doc, 0)
                 with times.part("client"):
-                    writers[doc][0].summarize()
+                    for collector in collectors[doc]:
+                        collector.collect()
+                    for manager in managers[doc]:
+                        manager.tick()
     t_sync = time.perf_counter()
     sidecar.sync()
     torch.cuda.synchronize()
@@ -2694,7 +2923,8 @@ def phase_service(seed: int) -> dict:
     host["other"] = rounds_s - sum(host.values())
     busy = _device_busy_ms(prof)
 
-    # late joins from the scribe's summary plus the tail
+    # late joins from the scribe's summary plus the tail; a late joiner's
+    # collector starts from the summary's GC state
     late_equal = 0
     for doc in docs[::SERVICE_LATE_EVERY]:
         if server.latest_summary(doc) is None:
@@ -2706,6 +2936,10 @@ def phase_service(seed: int) -> dict:
         if (string(late).get_text(), string(late).signature()) != \
                 (want.get_text(), want.signature()):
             raise AssertionError(f"{doc}: the late joiner differs")
+        if GarbageCollector(late.runtime).snapshot() != \
+                server.latest_summary(doc).summary["runtime"]["gc"]:
+            raise AssertionError(f"{doc}: the late joiner's GC state "
+                                 f"differs from the summary's")
         late_equal += 1
     sidecar.apply()  # the late joins' sequenced joins
     sidecar.sync()
@@ -2714,7 +2948,7 @@ def phase_service(seed: int) -> dict:
     phase_s = time.perf_counter() - t0
 
     t_check = time.perf_counter()
-    messages = 0
+    messages = attributed = 0
     for doc in docs:
         texts = {string(c).get_text() for c in writers[doc]}
         served = sidecar.text(doc, "d", "s")
@@ -2731,6 +2965,29 @@ def phase_service(seed: int) -> dict:
         if text != served or sidecar.signature(doc, "d", "s") != sig:
             raise AssertionError(f"{doc}: sidecar differs from the "
                                  f"op log's replay")
+        manager_a, manager_b = managers[doc]
+        if (manager_a.election.elected, manager_b.election.elected) != \
+                (f"{doc}-a",) * 2 or manager_b.is_summarizer or \
+                manager_a.running.summaries_produced != 1:
+            raise AssertionError(f"{doc}: writer A is not the one elected "
+                                 f"summarizer with one summary")
+        gc_state = server.latest_summary(doc).summary["runtime"].get("gc")
+        if gc_state != collectors[doc][0].snapshot() or \
+                "/side" not in gc_state["unreferencedSince"]:
+            raise AssertionError(f"{doc}: the summary's GC state "
+                                 f"{gc_state} is not writer A's collector's")
+        ops = [m for m in log_msgs if m.type == MessageType.OPERATION]
+        attributor = attributors[doc]
+        decoded = Attributor.decode(attributor.encode())
+        if len(attributor) != len(ops) or len(decoded) != len(ops) or any(
+                attributor.get(m.sequence_number) is None
+                or attributor.get(m.sequence_number).user != m.client_id
+                or decoded.get(m.sequence_number)
+                != attributor.get(m.sequence_number) for m in ops):
+            raise AssertionError(f"{doc}: writer B's attributor does not "
+                                 f"hold one entry per sequenced op, or its "
+                                 f"encoding does not round-trip")
+        attributed += len(attributor)
     if len(acks) != SERVICE_DOCS:
         raise AssertionError(f"{len(acks)} summaries acked of "
                              f"{SERVICE_DOCS}")
@@ -2772,10 +3029,16 @@ def phase_service(seed: int) -> dict:
         f"{1 - busy['total'] / (profiled_s * 1e3):.6f}, {busy['events']} "
         f"device events; grows {sidecar.grow_count}, host evictions "
         f"{sidecar.evict_count} (host docs {sidecar.host_mode_docs()}); "
-        f"summaries acked {len(acks)}; late joins equal {late_equal}/"
-        f"{len(docs[::SERVICE_LATE_EVERY])}; every document's sidecar "
-        f"text == both writers' == its op log's scalar replay (signature "
-        f"too); one dispatch "
+        f"summaries acked {len(acks)}, each by writer A, every document's "
+        f"elected summarizer (SummaryManager on both writers, its time "
+        f"heuristic on a session clock that moves once, after round "
+        f"{SERVICE_SUMMARY_ROUND}), each carrying writer A's GC state (an "
+        f"unreferenced datastore's time); late joins equal {late_equal}/"
+        f"{len(docs[::SERVICE_LATE_EVERY])}, their GC state == the "
+        f"summary's; writer B's attributors hold {attributed} entries, one "
+        f"per sequenced op, and round-trip encode/decode; every document's "
+        f"sidecar text == both writers' == its op log's scalar replay "
+        f"(signature too); one dispatch "
         f"({shape}) kernel == plain, every field, and == the "
         f"dispatch's own output; device half under sync debug 'error' in "
         f"{guard['calls']} dispatches; checks {check_s:.3f} s")
@@ -3456,7 +3719,7 @@ def phase_serve() -> dict:
     def holding(cfg, **kw):
         sidecar, encs = build(cfg, **kw)
         built.append((sidecar, encs, _guard_device_half(sidecar),
-                      _hold_scan_dispatch(sidecar)))
+                      _hold_scan_dispatch(sidecar), kw["usage"]))
         return sidecar, encs
 
     t0 = time.perf_counter()
@@ -3468,7 +3731,8 @@ def phase_serve() -> dict:
             duration_s=SERVE_DURATION_S,
             capacity_ops_per_s=SERVE_CAPACITY_OPS,
             offered_multiple=multiple, seed=SERVE_SEED, profile=profile,
-            sidecar_docs=SERVE_SIDECAR_DOCS, sidecar_device="cuda"))
+            sidecar_docs=SERVE_SIDECAR_DOCS, sidecar_device="cuda",
+            heat=True))
             for _, multiple, profile in SERVE_RUNS]
     finally:
         serve_bench._build_sidecar = build
@@ -3487,10 +3751,19 @@ def phase_serve() -> dict:
             ("breach", "breach"):
         raise AssertionError(f"serve: the 3x overload graded {verdicts[2]}")
     replays = {}
-    for (sidecar, encs, guard, held), rep in zip(built, reports):
+    for (sidecar, encs, guard, held, usage), rep in zip(built, reports):
         if guard["calls"] != rep.sidecar_rounds or not held:
             raise AssertionError(f"serve: {guard['calls']} guarded "
                                  f"dispatches of {rep.sidecar_rounds}")
+        # the sidecar's per-tenant rollup: every attributed ms billed
+        tenant_ms = sum(usage.column(t, "device_ms") for t in usage.keys())
+        if not rep.heat_top_tenants or not rep.heat_attributed_ms > 0 or \
+                not math.isclose(tenant_ms, rep.heat_attributed_ms,
+                                 rel_tol=1e-9):
+            raise AssertionError(
+                f"serve: heat tenants {rep.heat_top_tenants}, tenants' "
+                f"device_ms {tenant_ms} against {rep.heat_attributed_ms} "
+                f"attributed")
         fed_ops = rep.sidecar_rounds * serve_bench.ServeBenchConfig \
             .sidecar_round_ops
         for d in range(SERVE_SIDECAR_DOCS):
@@ -3505,7 +3778,7 @@ def phase_serve() -> dict:
                                      f"replay of its first {key[1]} ops")
     if launches <= 0:
         raise AssertionError(f"serve: B1 launches {launches}")
-    sidecar, _, _, held = built[0]
+    sidecar, _, _, held, _ = built[0]
     want, err = _check_window(held["table"], held["batch"],
                               "the serve sidecar's dispatch")
     bad = [f for f, x, y in zip(want._fields, held["out"], want)
@@ -3524,7 +3797,10 @@ def phase_serve() -> dict:
             f"{rep.max_pressure_tier}; sidecar {rep.sidecar_rounds} rounds, "
             f"{rep.sidecar_ops} ops, round p50 / p99 "
             f"{rep.sidecar_round_p50_ms:.3f} / {rep.sidecar_round_p99_ms:.3f}"
-            f" wall ms on the card; SLO {json.dumps(verdict, sort_keys=True)}"
+            f" wall ms on the card; heat {rep.heat_attributed_ms} step-clock "
+            f"ms attributed, top tenants "
+            f"{json.dumps(rep.heat_top_tenants)}; SLO "
+            f"{json.dumps(verdict, sort_keys=True)}"
             f" ({rep.slo_breach_evaluations} of {rep.slo_evaluations} "
             f"evaluations breached); wall {rep.wall_s:.3f} s")
     log(f"serve: config9 at full width ({SERVE_DOCS} docs x (1 writer + "
@@ -3533,7 +3809,9 @@ def phase_serve() -> dict:
         f"capacity {SERVE_CAPACITY_OPS} ops/s, seed {SERVE_SEED}; sidecar "
         f"GpuMergeSidecar on cuda, {SERVE_SIDECAR_DOCS} docs x 256); the "
         f"steady runs' deterministic fields equal; the overload breaches "
-        f"goodput-floor and submit-ack-p99; every sidecar document of the "
+        f"goodput-floor and submit-ack-p99; heat=True, every run's "
+        f"heat_top_tenants filled and its tenants' device_ms summing to "
+        f"its heat_attributed_ms; every sidecar document of the "
         f"3 runs == the scalar replay of its fed prefix; B1 launches "
         f"{launches}; one dispatch "
         f"({want.docs} x {want.capacity} x {held['batch'].kind.shape[1]}) "
@@ -4266,6 +4544,224 @@ def phase_dds() -> dict:
 
 
 # ----------------------------------------------------------------------
+# framework: the app-facing client and the editor bindings, live
+
+FRAMEWORK_DOCS, FRAMEWORK_CAPACITY, FRAMEWORK_MAX_CAPACITY = 1024, 512, 8192
+FRAMEWORK_ROUNDS, FRAMEWORK_STEPS = 4, 8  # workload steps per editor
+FRAMEWORK_UNDO_ROUND, FRAMEWORK_UNDO, FRAMEWORK_REDO = 3, 4, 2
+FRAMEWORK_SCHEMA = {"text": "sharedstring", "meta": "sharedmap"}
+FRAMEWORK_SEED = 11
+
+
+def phase_framework() -> dict:
+    """1024 documents made through ``LocalServiceClient.create_container``
+    (schema: a SharedString "text" and a SharedMap "meta"), a second
+    editor on each through ``get_container``; ``GpuMergeSidecar`` serves
+    every document's ``initial-objects/text``, subscribed as the orderer
+    of a new document is made, before its first op. Half the documents
+    run ``richtext.editor_workload`` on two ``RichTextEditor``s (editor
+    A with an ``UndoRedoStackManager``: one operation per workload step,
+    4 undone and 2 redone after round 3), the other half
+    ``flowdoc.flow_workload`` on two ``FlowDocument``s; 4 rounds of 8
+    steps per editor, a flush per editor and an apply per round. Both
+    workloads' comments are interval ops, which a merge sidecar cannot
+    ingest (ROADMAP section C): ``add_comment`` is a no-op here, the
+    rng draws unchanged, and the skipped comments are counted."""
+    import fluidframework_tpu_torch
+    from fluidframework_tpu_torch.framework import (
+        LocalServiceClient, SharedStringUndoRedoHandler,
+        UndoRedoStackManager, flowdoc, richtext,
+    )
+    from fluidframework_tpu_torch.framework.fluid_static import (
+        SCHEMA_DATASTORE,
+    )
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.service import GpuMergeSidecar
+
+    rng = random.Random(FRAMEWORK_SEED)
+    times = _SelfTimes()
+    t0 = time.perf_counter()
+    server, _ = _timed_server(session_api(fluidframework_tpu_torch), times,
+                              FRAMEWORK_SEED)
+    sidecar = GpuMergeSidecar(device="cuda", executor="scan",
+                              max_docs=FRAMEWORK_DOCS,
+                              capacity=FRAMEWORK_CAPACITY,
+                              max_capacity=FRAMEWORK_MAX_CAPACITY)
+    guard = _guard_device_half(sidecar)
+    held = _hold_scan_dispatch(sidecar)
+    sidecar.ingest = times.wrap("sidecar ingest", sidecar.ingest)
+    # create_container draws a uuid document id and attaches at once:
+    # the sidecar taps each document's orderer as the server makes it
+    captured = {}
+    get_orderer = server.get_orderer
+
+    def serving(doc):
+        made = doc not in server.documents
+        orderer = get_orderer(doc)
+        if made:
+            captured[doc] = []
+            _time_orderer(server, doc, times, captured[doc])
+            sidecar.subscribe(server, doc, SCHEMA_DATASTORE, "text")
+        return orderer
+
+    server.get_orderer = serving
+    skipped = collections.Counter()
+
+    def no_comment(kind):
+        def add_comment(self, start, end, text):
+            skipped[kind] += 1
+        return add_comment
+
+    saved = (richtext.RichTextEditor.add_comment,
+             flowdoc.FlowDocument.add_comment)
+    richtext.RichTextEditor.add_comment = no_comment("richtext")
+    flowdoc.FlowDocument.add_comment = no_comment("flowdoc")
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    try:
+        clients = [LocalServiceClient(server, user_id=u)
+                   for u in ("alice", "bob")]
+        sessions = []
+        with times.part("client"):
+            for i in range(FRAMEWORK_DOCS):
+                fa, _, doc = clients[0].create_container(FRAMEWORK_SCHEMA)
+                fb, _ = clients[1].get_container(doc, FRAMEWORK_SCHEMA)
+                texts = [f.initial_objects["text"] for f in (fa, fb)]
+                if i % 2 == 0:
+                    kind, work = "richtext", richtext.editor_workload
+                    editors = [richtext.RichTextEditor(t, user=u)
+                               for t, u in zip(texts, ("alice", "bob"))]
+                    stack = UndoRedoStackManager()
+                    SharedStringUndoRedoHandler(stack, texts[0])
+                else:
+                    kind, work = "flowdoc", flowdoc.flow_workload
+                    editors = [flowdoc.FlowDocument(t, user=u)
+                               for t, u in zip(texts, ("alice", "bob"))]
+                    stack = None
+                sessions.append(dict(doc=doc, kind=kind, work=work,
+                                     fluid=(fa, fb), texts=texts,
+                                     editors=editors, stack=stack))
+        setup_s = time.perf_counter() - t0
+        cuda_merge.LAUNCHES = 0
+        torch.cuda.synchronize()
+        prof.start()
+        before = dict(times.s)
+        t1 = time.perf_counter()
+        undone = redone = 0
+        for rnd in range(1, FRAMEWORK_ROUNDS + 1):
+            for ses in sessions:
+                with times.part("client"):
+                    ea, eb = ses["editors"]
+                    for _ in range(FRAMEWORK_STEPS):
+                        ses["work"](ea, rng, 1)
+                        if ses["stack"] is not None:
+                            ses["stack"].close_current_operation()
+                    ses["work"](eb, rng, FRAMEWORK_STEPS)
+                    for f in ses["fluid"]:
+                        f.container.flush()
+            with times.part("sidecar apply"):
+                sidecar.apply()
+            if rnd == FRAMEWORK_UNDO_ROUND:
+                for ses in sessions:
+                    if ses["stack"] is None:
+                        continue
+                    with times.part("client"):
+                        undone += sum(ses["stack"].undo_operation()
+                                      for _ in range(FRAMEWORK_UNDO))
+                        redone += sum(ses["stack"].redo_operation()
+                                      for _ in range(FRAMEWORK_REDO))
+                        ses["fluid"][0].container.flush()
+        with times.part("sidecar apply"):
+            sidecar.apply()
+            sidecar.sync()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t1
+        prof.stop()
+    finally:
+        (richtext.RichTextEditor.add_comment,
+         flowdoc.FlowDocument.add_comment) = saved
+    launches = cuda_merge.LAUNCHES
+    busy = _device_busy_ms(prof)
+    # the rounds' host seconds by part (the setup's loads excluded)
+    host = {k: v - before.get(k, 0.0) for k, v in times.s.items()}
+
+    t_check = time.perf_counter()
+    messages = 0
+    for ses in sessions:
+        doc, (ea, eb) = ses["doc"], ses["editors"]
+        served = sidecar.text(doc, SCHEMA_DATASTORE, "text")
+        if {t.get_text() for t in ses["texts"]} != {served}:
+            raise AssertionError(f"framework {doc}: the sidecar's text != "
+                                 f"both editors' strings")
+        if len({t.signature() for t in ses["texts"]}) != 1:
+            raise AssertionError(f"framework {doc}: the editors' string "
+                                 f"signatures differ")
+        messages += len(captured[doc])
+        if _oracle(_log_stream(captured[doc], SCHEMA_DATASTORE, "text")) != (
+                served, sidecar.signature(doc, SCHEMA_DATASTORE, "text")):
+            raise AssertionError(f"framework {doc}: the sidecar != the "
+                                 f"replay of its stream")
+        if ses["kind"] == "richtext":
+            forms = [[(p.style, p.runs) for p in e.render()]
+                     for e in (ea, eb)]
+        else:
+            forms = [[(b.kind, b.heading, b.runs) for b in e.render()]
+                     for e in (ea, eb)]
+        if forms[0] != forms[1]:
+            raise AssertionError(f"framework {doc}: render() differs "
+                                 f"between the editors")
+    if sidecar.host_mode_docs() or sidecar.overflowed():
+        raise AssertionError(f"framework: {sidecar.host_mode_docs()} host "
+                             f"documents")
+    if launches <= 0 or not held or guard["calls"] <= 0:
+        raise AssertionError(f"framework: B1 launches {launches}, held "
+                             f"dispatch {bool(held)}, guarded "
+                             f"{guard['calls']}")
+    if undone != FRAMEWORK_UNDO * FRAMEWORK_DOCS // 2 or \
+            redone != FRAMEWORK_REDO * FRAMEWORK_DOCS // 2:
+        raise AssertionError(f"framework: {undone} undone, {redone} redone")
+    want, err = _check_window(held["table"], held["batch"],
+                              "the framework leg's dispatch")
+    bad = [f for f, x, y in zip(want._fields, held["out"], want)
+           if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"the framework dispatch's output differs "
+                             f"from the plain version's at {bad}")
+    steps = FRAMEWORK_DOCS * 2 * FRAMEWORK_ROUNDS * FRAMEWORK_STEPS
+    log(f"framework: {FRAMEWORK_DOCS} documents (an app's small rich-text "
+        f"and webflow documents, two co-editors each) made by "
+        f"LocalServiceClient.create_container({FRAMEWORK_SCHEMA}) and "
+        f"joined by get_container; GpuMergeSidecar scan "
+        f"{FRAMEWORK_DOCS} x {FRAMEWORK_CAPACITY} (max "
+        f"{FRAMEWORK_MAX_CAPACITY}) on {SCHEMA_DATASTORE}/text, "
+        f"subscribed as each document's orderer is made; "
+        f"{FRAMEWORK_DOCS // 2} richtext.editor_workload documents (editor "
+        f"A's UndoRedoStackManager: {undone} operations undone, {redone} "
+        f"redone after round {FRAMEWORK_UNDO_ROUND}) and "
+        f"{FRAMEWORK_DOCS // 2} flowdoc.flow_workload documents, "
+        f"{FRAMEWORK_ROUNDS} rounds of {FRAMEWORK_STEPS} steps per editor: "
+        f"{steps} workload steps, {messages} sequenced messages; comments "
+        f"skipped (interval ops, ROADMAP section C): richtext "
+        f"{skipped['richtext']}, flowdoc {skipped['flowdoc']}; wall "
+        f"{wall_s:.3f} s, {steps / wall_s:.1f} steps/s (setup "
+        f"{setup_s:.3f} s); the rounds' host s: client "
+        f"{host.get('client', 0.0):.3f} (editors, flush, delivery), orderer "
+        f"{host.get('orderer', 0.0):.3f}, sidecar ingest "
+        f"{host.get('sidecar ingest', 0.0):.3f}, sidecar apply "
+        f"{host.get('sidecar apply', 0.0):.3f} (pack "
+        f"{sidecar.stats['pack_s']:.3f}); B1 launches {launches}; the "
+        f"leg's " + _busy_line(busy, wall_s)
+        + f"; grows {sidecar.grow_count}; checks: every document's sidecar "
+        f"text == both editors' strings, their signatures equal, the "
+        f"sidecar == its stream's scalar replay, render() equal across the "
+        f"editors; one dispatch kernel == plain, every field; device half "
+        f"under sync debug 'error' in {guard['calls']} dispatches; leg "
+        f"wall {time.perf_counter() - t0:.3f} s with the checks "
+        f"({time.perf_counter() - t_check:.3f} s)")
+    return {"launches": launches, "max_abs_err": err}
+
+
+# ----------------------------------------------------------------------
 # times at the main path's shape
 
 def _time_ms(fn, reps: int, launches: int = 1) -> list:
@@ -4415,6 +4911,8 @@ def main() -> int:
         mark("kernel")
         main_rec = phase_main(args.seed)
         mark("main")
+        fuzz_rec = phase_fuzz()
+        mark("fuzz")
         undonated = phase_routes()
         mark("routes")
         phase_recovery(args.seed)
@@ -4439,6 +4937,8 @@ def main() -> int:
         mark("serve")
         dds_rec = phase_dds()
         mark("dds")
+        framework_rec = phase_framework()
+        mark("framework")
         time_rec = phase_time(args.seed)
         mark("times")
         log("phase walls: " + ", ".join(
@@ -4447,8 +4947,11 @@ def main() -> int:
         worst = max(worst, time_rec.pop("max_abs_err"),
                     pool_rec["max_abs_err"], matrix_rec["max_abs_err"],
                     service_rec["max_abs_err"], ingress_rec["max_abs_err"],
-                    serve_rec["max_abs_err"], dds_rec["max_abs_err"])
+                    serve_rec["max_abs_err"], dds_rec["max_abs_err"],
+                    fuzz_rec["max_abs_err"], framework_rec["max_abs_err"])
         paths = {"main path": main_rec["launches"],
+                 "fuzz": fuzz_rec["launches"],
+                 "config10": pool_rec["config10_launches"],
                  "matrix": matrix_rec["launches"],
                  "donated runs": donation_rec["launches"],
                  "prewarmed rounds": prewarm_rec["launches"],
@@ -4456,7 +4959,8 @@ def main() -> int:
                  "service": service_rec["launches"],
                  "ingress": ingress_rec["launches"],
                  "serve": serve_rec["launches"],
-                 "dds": dds_rec["launches"]}
+                 "dds": dds_rec["launches"],
+                 "framework": framework_rec["launches"]}
     except Exception:  # noqa: BLE001 - report any failed phase, exit 1
         traceback.print_exc()
         log("FAIL")

@@ -8,6 +8,10 @@ no submodule until one of its names is asked for, so ``convert`` and
 ``host_bridge`` can depend on each other's modules without an import
 cycle.
 
+- ``segment_table``: ``SegmentTable``, ``OpBatch``, ``make_table``
+  and the op-kind and channel constants;
+- ``host_bridge``: ``DocStream``, ``encode_stream``, ``build_batch``,
+  ``fetch``, ``extract_text``, ``extract_signature``;
 - ``merge_kernel``: ``apply_window`` (the scan route; on a CUDA table
   the Hopper kernel of ``cuda_merge``), its double-buffered twin
   ``apply_window_pingpong``, ``pad_capacity``, ``compact``;
@@ -18,7 +22,8 @@ cycle.
 - ``event_graph``: ``build_event_graph`` (host),
   ``apply_window_egwalker``, its twin
   ``apply_window_egwalker_pingpong`` and ``apply_batch_egwalker``
-  (device), ``EXECUTOR_ROUTES``, ``EG_K``, ``validate_executor``;
+  (device), ``EventGraph``, ``EXECUTOR_ROUTES``, ``EG_K``,
+  ``validate_executor``;
 - ``host_replay``: ``HostDocReplay``, ``replay_encoded`` (the scalar
   host twin of the scan);
 - ``matrix_cells``: ``apply_cells_kernel``, ``CellPack`` (the cells'
@@ -36,6 +41,22 @@ cycle.
 from importlib import import_module
 
 _EXPORTS = {
+    "KIND_ANNOTATE": "segment_table",
+    "KIND_INSERT": "segment_table",
+    "KIND_NOOP": "segment_table",
+    "KIND_REMOVE": "segment_table",
+    "MAX_CLIENTS": "segment_table",
+    "NOT_REMOVED": "segment_table",
+    "OpBatch": "segment_table",
+    "PROP_CHANNELS": "segment_table",
+    "SegmentTable": "segment_table",
+    "make_table": "segment_table",
+    "DocStream": "host_bridge",
+    "build_batch": "host_bridge",
+    "encode_stream": "host_bridge",
+    "extract_signature": "host_bridge",
+    "extract_text": "host_bridge",
+    "fetch": "host_bridge",
     "apply_window": "merge_kernel",
     "apply_window_pingpong": "merge_kernel",
     "compact": "merge_kernel",
@@ -48,6 +69,7 @@ _EXPORTS = {
     "macro_steps": "merge_chunk",
     "EG_K": "event_graph",
     "EXECUTOR_ROUTES": "event_graph",
+    "EventGraph": "event_graph",
     "apply_batch_egwalker": "event_graph",
     "apply_window_egwalker": "event_graph",
     "apply_window_egwalker_pingpong": "event_graph",

@@ -219,6 +219,19 @@ def default_donate() -> bool:
     return False
 
 
+def default_pipeline() -> bool:
+    """Whether a sidecar overlaps the next round's pack with the device
+    when the caller does not say: ``FFTPU_SIDECAR_PIPELINE=0`` turns it
+    off, ``1`` or unset leaves it on, any other value raises
+    ``ValueError`` (the reference reads the variable the same way in
+    both of its sidecars)."""
+    env = os.environ.get("FFTPU_SIDECAR_PIPELINE")
+    if env and env not in ("0", "1"):
+        raise ValueError(
+            f"FFTPU_SIDECAR_PIPELINE={env!r}: expected '0' or '1'")
+    return env != "0"
+
+
 class SeqShardedPool:
     """Long-document tier: documents that outgrow the primary slab
     ladder move to a table whose SLOT axis is split over the mesh's seq
@@ -516,7 +529,9 @@ class GpuMergeSidecar:
       so a retry is exact;
     - ``heat`` (a ``HeatLedger``) is charged at ``_settle`` with each
       round's wall-ms split over its documents by ops applied
-      (``attribute_round``); ``attr_clock`` is the host clock it reads;
+      (``attribute_round``), and each document's charge rolls up to
+      its tenant's ``device_ms`` in ``usage`` when ``tenant_of`` names
+      the tenant; ``attr_clock`` is the host clock it reads;
     - ``device_trace`` (``FFTPU_DEVICE_TRACE=1``) names the device
       half of every dispatch ``sidecar:dispatch:r{n}``.
     """
@@ -526,13 +541,15 @@ class GpuMergeSidecar:
                  seq_mesh=None, pool_capacity: Optional[int] = None,
                  pool_route: Optional[str] = None,
                  executor: Optional[str] = None,
-                 pipeline: bool = True,
+                 pipeline: Optional[bool] = None,
                  donate: Optional[bool] = None,
                  ladder: Optional[BucketLadder] = None,
                  device: torch.device | str = "cuda",
                  trace_ops: Optional[bool] = None,
                  breaker=None,
                  heat: Optional[HeatLedger] = None,
+                 usage: Optional[HeatLedger] = None,
+                 tenant_of: Optional[Callable] = None,
                  attr_clock: Optional[Callable[[], float]] = None):
         validate_executor(executor, "executor")
         self.executor = executor or default_executor()
@@ -569,6 +586,8 @@ class GpuMergeSidecar:
         # device-time attribution: counts captured at pack time, charged
         # at the settle boundary from a host clock
         self.heat = heat
+        self.usage = usage
+        self.tenant_of = tenant_of
         self._attr_clock = (attr_clock if attr_clock is not None
                             else time.perf_counter)
         self._attr_counts: dict[str, int] = {}
@@ -595,7 +614,8 @@ class GpuMergeSidecar:
         self.max_docs = max_docs
         self.capacity = capacity
         self.max_capacity = max_capacity
-        self.pipeline = pipeline
+        self.pipeline = (pipeline if pipeline is not None
+                         else default_pipeline())
         self.ladder = ladder or BucketLadder()
         self._table = make_table(max_docs, capacity, self.device)
         self._slots: dict[tuple[str, str, str], int] = {}
@@ -1005,7 +1025,8 @@ class GpuMergeSidecar:
             # the round's wall-ms (dispatch start -> here) split over its
             # documents by ops applied: host math over host ints
             round_ms = (self._attr_clock() - self._attr_t0) * 1000.0
-            attribute_round(self.heat, self._attr_counts, round_ms)
+            attribute_round(self.heat, self._attr_counts, round_ms,
+                            usage=self.usage, tenant_of=self.tenant_of)
             self._attr_counts = {}
         if self.trace_ops and self._inflight_msgs:
             settle_t = time.time()

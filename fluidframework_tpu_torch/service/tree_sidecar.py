@@ -71,6 +71,7 @@ from ..ops.tree_apply import (
 from ..protocol.messages import MessageType, SequencedMessage
 from ..protocol.tree_payload import tree_change_from_json
 from ..qos.faults import KIND_ERROR, KIND_ERROR_BURST, PLANE as _CHAOS
+from .gpu_sidecar import default_pipeline
 
 # Registry families, the reference's names, kinds and labels
 _M_ROUNDS = obs_metrics.REGISTRY.counter(
@@ -316,7 +317,7 @@ class TreeSidecar:
                  max_capacity: int = 4096,
                  pool_mesh=None, pool_capacity: Optional[int] = None,
                  executor: Optional[str] = None,
-                 pipeline: bool = True,
+                 pipeline: Optional[bool] = None,
                  ladder: Optional[BucketLadder] = None,
                  ring: int = TRUNK_RING,
                  width: int = DEFAULT_ATOMS,
@@ -330,7 +331,8 @@ class TreeSidecar:
         self.max_capacity = max_capacity
         self.ring = ring
         self.width = width
-        self.pipeline = pipeline
+        self.pipeline = (pipeline if pipeline is not None
+                         else default_pipeline())
         self.ladder = ladder or BucketLadder()
         self.flight = FlightRecorder(256, name="tree-sidecar")
         self.last_flight_dump: Optional[str] = None

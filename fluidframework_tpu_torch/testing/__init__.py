@@ -1,6 +1,6 @@
 """Seeded traffic for the port: the mock collaboration session, the
 op-stream recorders, the generic DDS fuzz engine, the stored-format
-compat matrix, the tree plane's changeset generators and session
+compat matrix, the webflow-mix recorder, the tree plane's changeset generators and session
 recorder, and bench config3's matrix streams."""
 from .compat import (
     CompatConfig,
@@ -8,7 +8,13 @@ from .compat import (
     downgrade_channel_summary,
     import_as_fresh_document,
 )
-from .fuzz import FuzzConfig, record_op_stream, record_sequential_stream
+from .fuzz import (
+    FuzzConfig,
+    record_flow_stream,
+    record_op_stream,
+    record_sequential_stream,
+    run_convergence_fuzz,
+)
 from .matrix_streams import (
     MATRIX_SCALES,
     MatrixConfig,
@@ -36,8 +42,10 @@ __all__ = [
     "random_change_with_moves",
     "random_changeset",
     "random_trunk",
+    "record_flow_stream",
     "record_matrix_streams",
     "record_op_stream",
     "record_sequential_stream",
     "record_tree_stream",
+    "run_convergence_fuzz",
 ]

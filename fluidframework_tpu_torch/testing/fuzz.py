@@ -73,6 +73,13 @@ def random_op(rng: random.Random, session: MockCollabSession,
                    {key: value})
 
 
+def run_convergence_fuzz(cfg: FuzzConfig) -> str:
+    """Random interleaving of local ops and partial sequencing across
+    clients; returns the converged text."""
+    text, _ = record_op_stream(cfg)
+    return text
+
+
 def record_op_stream(cfg: FuzzConfig):
     """Run the convergence fuzz, returning (converged_text, sequenced
     stream incl. joins) — the stream feeds differential tests of the
@@ -119,5 +126,90 @@ def record_sequential_stream(seed: int = 0, n_clients: int = 3,
         # the sequential contract: fully sequence + deliver after
         # every local op, so the next op (any client) has seen it
         session.process_all()
+    session.process_all()
+    return session.assert_converged(), stream
+
+
+def record_flow_stream(seed: int = 0, n_clients: int = 3,
+                       n_steps: int = 160):
+    """Record a webflow-mix sequenced stream at the merge level — the
+    FlowDocument workload's op shape (tag-PAIR markers with pairId
+    props, pair-consistent removes, css token-list annotate churn,
+    block tiles) expressed directly as kernel-encodable merge ops
+    (VERDICT r4 next #9: the editor workload joins the bench corpus).
+    Uses exactly the four property channels the device carries
+    (class/tag/pairId/heading). Returns (converged_text, stream)."""
+    from ..framework.flowdoc import (
+        MARKER_LINEBREAK,
+        MARKER_PARAGRAPH,
+        MARKER_TAG_BEGIN,
+        MARKER_TAG_END,
+        PROP_CLASS,
+        PROP_HEADING,
+        PROP_PAIR,
+        PROP_TAG,
+        TAGS,
+        pair_consistent_remove,
+    )
+
+    rng = random.Random(seed)
+    ids = [f"client-{i}" for i in range(n_clients)]
+    stream: list = []
+    session = MockCollabSession(ids, stream_log=stream)
+    words = ("flow", "tensor", "lattice", "quorum", "spline", "glyph")
+    pair_n = 0
+
+    for _ in range(n_steps):
+        if rng.random() < 0.12 and session.pending_count:
+            session.process_some(
+                rng.randint(1, session.pending_count))
+            continue
+        cid = rng.choice(ids)
+        client = session.client(cid)
+        n = client.get_length()
+        roll = rng.random()
+        if roll < 0.34 or n < 4:
+            pos = rng.randint(0, n)
+            props = {PROP_CLASS: rng.choice(("hero", "note"))} \
+                if rng.random() < 0.3 else None
+            session.do(cid, "insert_text_local", pos,
+                       rng.choice(words), props)
+        elif roll < 0.50:
+            a = rng.randrange(n - 2)
+            b = rng.randint(a + 1, min(n, a + 9))
+            pair_n += 1
+            pid = f"{cid}-{pair_n}"
+            session.do(cid, "insert_marker_local", b,
+                       MARKER_TAG_END, {PROP_PAIR: pid})
+            session.do(cid, "insert_marker_local", a,
+                       MARKER_TAG_BEGIN,
+                       {PROP_TAG: rng.choice(TAGS), PROP_PAIR: pid})
+        elif roll < 0.64:
+            # the binding's OWN pair-consistent remove walk, driven
+            # at the merge level (one shared copy of the index.ts:248
+            # orphan cleanup — flowdoc.pair_consistent_remove)
+            a = rng.randrange(n - 2)
+            b = rng.randint(a + 1, min(n, a + 7))
+            pair_consistent_remove(
+                client.mergetree.span_content,
+                lambda lo, hi: session.do(
+                    cid, "remove_range_local", lo, hi),
+                a, b,
+            )
+        elif roll < 0.86:
+            a = rng.randrange(n - 2)
+            b = rng.randint(a + 1, min(n, a + 10))
+            tok = rng.choice(("hot", "cold", "muted", "alert", None))
+            session.do(cid, "annotate_range_local", a, b,
+                       {PROP_CLASS: tok})
+        else:
+            pos = rng.randint(0, n)
+            if rng.random() < 0.5:
+                session.do(cid, "insert_marker_local", pos,
+                           MARKER_PARAGRAPH,
+                           {PROP_HEADING: rng.choice((1, 2))})
+            else:
+                session.do(cid, "insert_marker_local", pos,
+                           MARKER_LINEBREAK, None)
     session.process_all()
     return session.assert_converged(), stream

@@ -41,9 +41,7 @@ rides the run (``profile=True``); config9 runs the same config with
 it on and off and reports the measured overhead.
 
 A copy of the reference's ``tools/serve_bench.py``. The sidecar is the
-port's ``GpuMergeSidecar`` on ``sidecar_device``; it carries the heat
-ledger but not the reference sidecar's per-tenant usage rollup, so
-``heat=True`` with ``sidecar_docs > 0`` raises ``ValueError``.
+port's ``GpuMergeSidecar`` on ``sidecar_device``.
 """
 from __future__ import annotations
 
@@ -303,6 +301,17 @@ class _StepClock:
         return self.t
 
 
+def _tenant_of_doc(doc: str) -> str:
+    """Deterministic doc→tenant assignment for the harness: sdoc-<d>
+    bills tenant-<d mod 3> (a skewed-enough split that top-k has an
+    ordering to get right)."""
+    try:
+        d = int(doc.rsplit("-", 1)[1])
+    except (IndexError, ValueError):
+        return "tenant-0"
+    return f"tenant-{d % 3}"
+
+
 def _build_sidecar(cfg: ServeBenchConfig, heat_ledger=None,
                    usage=None, attr_clock=None):
     """The sidecar-routed document population (config7's feeding
@@ -313,15 +322,12 @@ def _build_sidecar(cfg: ServeBenchConfig, heat_ledger=None,
     from ..service.gpu_sidecar import GpuMergeSidecar
     from ..testing import FuzzConfig, record_op_stream
 
-    if usage is not None:
-        raise ValueError(
-            "heat=True with sidecar_docs > 0 needs the sidecar's "
-            "per-tenant usage rollup, which GpuMergeSidecar does not "
-            "carry")
     sidecar = GpuMergeSidecar(
         max_docs=cfg.sidecar_docs, capacity=cfg.sidecar_capacity,
         max_capacity=cfg.sidecar_capacity * 4,
-        heat=heat_ledger, attr_clock=attr_clock,
+        heat=heat_ledger, usage=usage,
+        tenant_of=_tenant_of_doc if usage is not None else None,
+        attr_clock=attr_clock,
         device=cfg.sidecar_device,
     )
     encs = []
