@@ -56,7 +56,15 @@ type of the registry in one datastore of 128 documents, the string and
 tree channels routed to their planes, late joiners after a summarize),
 serves 1024 documents made through the framework's
 ``LocalServiceClient`` to two editors each (rich text with undo/redo,
-webflow) into ``GpuMergeSidecar``, and times the kernel beside its
+webflow) into ``GpuMergeSidecar``, serves the service traffic through
+the partitioned ordering service (``PartitionedServer``, 4 partitions:
+the in-memory queue; the fsynced file queue with two partitions paused
+and resumed from their committed offsets mid-run, the sidecar
+re-attached and dropping the replayed duplicates; 64 documents through
+a ``BrokerServer`` over TCP) and through the replicated sequencer
+(``ReplicatedSequencerGroup``, quorum 2 of 3, the leader killed and a
+follower promoted mid-run, the sidecar re-attached and held against a
+shadow fed the new leader's logs), and times the kernel beside its
 plain version.
 
 The last line of standard output is
@@ -107,7 +115,13 @@ the leg, and the checks. The "fuzz:" line holds each batch's shape and
 the checks; the "framework:" line the documents, workload steps and
 sequenced messages, the undo / redo counts, the comments skipped (an
 interval op into a merge sidecar raises in both packages), steps per
-wall second, the host split, the device trace and the checks.
+wall second, the host split, the device trace and the checks. The
+"fsync:" line holds the temp directory's fsync latency; each
+"partitioned" line one queue (edits/s, the host split into client,
+produce, pump and sidecar, B1 launches, the device trace, the resume's
+redelivered records and dropped duplicates, the checks); the
+"replicated:" line the failover (its phases, edits/s before and after,
+quorum waits, the host split with the quorum barrier, the checks).
 The times lines cover the
 window rungs 16 / 32 / 64 at the main shape and the capacities 4096 and
 8192, with the NOOP share and the bound of each timed batch. Every phase
@@ -2709,6 +2723,20 @@ def session_api(package) -> types.SimpleNamespace:
     )
 
 
+def _time_connect(server, times) -> None:
+    """Count the clients' message and nack callbacks of ``server``'s
+    connections as "client" host time."""
+    connect = server.connect
+
+    def timed_connect(document_id, client_id, on_message, on_nack=None,
+                      **kw):
+        return connect(document_id, client_id,
+                       times.wrap("client", on_message),
+                       on_nack and times.wrap("client", on_nack), **kw)
+
+    server.connect = timed_connect
+
+
 def _timed_server(api, times, seed: int):
     """A ``LocalServer`` on a manual clock whose clients' message and
     nack callbacks count as "client" host time."""
@@ -2719,15 +2747,7 @@ def _timed_server(api, times, seed: int):
         return tick["t"]
 
     server = api.LocalServer(clock=clock)
-    connect = server.connect
-
-    def timed_connect(document_id, client_id, on_message, on_nack=None,
-                      **kw):
-        return connect(document_id, client_id,
-                       times.wrap("client", on_message),
-                       on_nack and times.wrap("client", on_nack), **kw)
-
-    server.connect = timed_connect
+    _time_connect(server, times)
     return server, api.factory(server)
 
 
@@ -4762,6 +4782,696 @@ def phase_framework() -> dict:
 
 
 # ----------------------------------------------------------------------
+# partitioned and replicated: the ordering plane's scale-out and
+# replication layer in front of the merge sidecar
+
+PART_PARTITIONS = 4
+PART_RESUMED = (0, 1)  # the partitions the durable sub-leg pauses and resumes
+PART_BROKER_DOCS = 64
+# depth cut of the durable and replicated legs: 1 of the service cell's
+# 4 rounds, the resume or the failover at its midpoint (before the
+# document SERVICE_DOCS // 2 edits); every message there fsyncs several
+# files (see the fsync line)
+PART_DURABLE_ROUNDS = REPL_ROUNDS = 1
+REPL_FOLLOWERS = 2  # leader + 2 followers, quorum 2 of 3
+ROUND_STEP_S = 0.05  # the injected clocks move this much per round (< lease TTL)
+FSYNC_PROBES = 400
+
+
+class StepClock:
+    """A clock that moves only when the session moves it: the sequencer
+    stamps, the queue's route stamps, the lease and the fleet timeline
+    read it, so two runs of one session are equal message for message."""
+
+    def __init__(self, t: float = 1_000_000.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def ordering_api(package) -> types.SimpleNamespace:
+    """``session_api`` plus the ordering plane's entry points, taken from
+    ``package``."""
+    def mod(name):
+        return importlib.import_module(f"{package.__name__}.{name}")
+
+    api = session_api(package)
+    part, broker = mod("service.partitioning"), mod("service.broker")
+    api.PartitionedServer = part.PartitionedServer
+    api.InMemoryOrderingQueue = part.InMemoryOrderingQueue
+    api.FileOrderingQueue = part.FileOrderingQueue
+    api.BrokerServer = broker.BrokerServer
+    api.RemoteOrderingQueue = broker.RemoteOrderingQueue
+    api.ReplicatedSequencerGroup = \
+        mod("service.replication").ReplicatedSequencerGroup
+    api.FleetTimeline = mod("obs.timeline").FleetTimeline
+    api.REGISTRY = mod("obs.metrics").REGISTRY
+    api.message_to_json = mod("protocol.serialization").message_to_json
+    return api
+
+
+def _string(c):
+    return c.runtime.get_datastore("d").get_channel("s")
+
+
+def _load_pair(api, server, doc: str, times, suffix: str = "",
+               create: bool = False) -> list:
+    """The document's two writer Containers (client ids ``<doc>-a`` and
+    ``<doc>-b`` plus ``suffix``); with ``create`` writer A attaches the
+    ("d", "s") SharedString."""
+    factory = api.factory(server)
+    with times.part("client"):
+        pair = [api.Container.load(factory.create_document_service(doc),
+                                   client_id=f"{doc}-{who}{suffix}")
+                for who in SERVICE_WRITERS]
+        if create:
+            pair[0].runtime.create_datastore("d").create_channel(
+                "sharedstring", "s")
+            pair[0].flush()
+    return pair
+
+
+def _dup_drops(api) -> float:
+    return api.REGISTRY.flat().get("sidecar_duplicate_drops_total", 0.0)
+
+
+def ordering_rounds(writers: dict, docs: list, rounds: int, rng, times,
+                    sidecar, clock, pump=None, event=None, event_at=None,
+                    after_doc=None, on_start=None) -> dict:
+    """The service cell's rounds: every writer makes ``SERVICE_EDITS``
+    edits and flushes, document by document, then ``pump()`` and the
+    sidecar's ``apply()``; the clock moves one step per round.
+    ``on_start()`` runs once, before the first round; ``event()`` runs
+    once, before document ``event_at[1]`` of round ``event_at[0]`` (the
+    leg's midpoint), and splits the rounds into the part before it and
+    the part after it; ``after_doc(rnd, doc)`` runs after a document's
+    flushes. Returns the edits and each part's edits and wall seconds
+    (the event's own time in neither)."""
+    edits, walls = [0, 0], [0.0, 0.0]
+    part = 0
+    if on_start is not None:
+        on_start()
+    for rnd in range(1, rounds + 1):
+        clock.t += ROUND_STEP_S
+        t0 = time.perf_counter()
+        for i, doc in enumerate(docs):
+            if event is not None and (rnd, i) == event_at:
+                walls[part] += time.perf_counter() - t0
+                event()
+                part = 1
+                t0 = time.perf_counter()
+            with times.part("client"):
+                for c in writers[doc]:
+                    s = _string(c)
+                    for _ in range(SERVICE_EDITS):
+                        _service_edit(rng, s)
+                        edits[part] += 1
+                for c in writers[doc]:
+                    c.flush()
+            if after_doc is not None:
+                after_doc(rnd, doc)
+        if pump is not None:
+            pump()
+        if sidecar is not None:
+            with times.part("sidecar apply"):
+                sidecar.apply()
+        walls[part] += time.perf_counter() - t0
+    return {"edits": sum(edits), "part_edits": edits, "part_walls": walls}
+
+
+def partitioned_leg(api, server, docs: list, rounds: int, seed: int,
+                    times, sidecar, clock, resume_at=None, resume=(),
+                    on_start=None) -> dict:
+    """Two writers per document on a ``PartitionedServer`` (every submit
+    produces a record into the ordering queue and pumps the document's
+    partition), ``sidecar`` (or None) subscribed to every document's
+    ("d", "s") before its first op; ``ordering_rounds`` with a
+    ``svc.pump()`` per round. At ``resume_at`` (round, document index)
+    the partitions ``resume`` are paused, their documents' writers close
+    (their leaves queue behind the paused consumers), and the partitions
+    are resumed: new consumers read from the committed offsets and
+    rebuild each document's orderer from its durable checkpoint, which
+    sequences a leave for every checkpointed client. The sidecar then
+    re-attaches to each rebuilt orderer and replays the document's
+    durable op log from seq 0, so everything it already holds drops as
+    a duplicate, and fresh writers finish the rounds."""
+    svc = server.svc
+    _time_connect(server, times)
+    for name in ("produce_op", "produce_join", "produce_leave"):
+        setattr(svc, name, times.wrap("produce", getattr(svc, name)))
+    svc.pump = times.wrap("pump", svc.pump)
+    server.pump_document = times.wrap("pump", server.pump_document)
+    rng = random.Random(seed)
+    writers = {}
+    for doc in docs:
+        if sidecar is not None:
+            sidecar.subscribe(server, doc, "d", "s")
+        writers[doc] = _load_pair(api, server, doc, times, create=True)
+    rec = {"moved": [], "redelivered": 0, "dropped": 0, "resume_s": 0.0}
+
+    def resume_partitions():
+        t0 = time.perf_counter()
+        moved = [d for d in docs if svc.partition_of(d) in resume]
+        for p in resume:
+            svc.pause_partition(p)
+        with times.part("client"):
+            for d in moved:
+                for c in writers[d]:
+                    c.close()
+        committed = {p: svc.queue.committed(p) for p in resume}
+        for p in resume:
+            svc.resume_partition(p)
+        with times.part("pump"):
+            redelivered = sum(svc.partitions[p].pump() for p in resume)
+        drops = _dup_drops(api)
+        for d in moved:
+            if sidecar is not None:
+                sidecar.subscribe(server, d, "d", "s")
+                for msg in server.read_ops(d, 0):
+                    sidecar.ingest(d, msg)
+            writers[d] = _load_pair(api, server, d, times, suffix="2")
+        rec.update(moved=moved, committed=committed,
+                   redelivered=redelivered,
+                   dropped=_dup_drops(api) - drops,
+                   resume_s=time.perf_counter() - t0)
+
+    rec.update(ordering_rounds(writers, docs, rounds, rng, times, sidecar,
+                               clock, pump=svc.pump,
+                               event=resume_partitions if resume else None,
+                               event_at=resume_at, on_start=on_start))
+    rec["writers"] = writers
+    return rec
+
+
+def replicated_leg(api, group, docs: list, rounds: int, seed: int, times,
+                   sidecar, clock, timeline, fail_at: tuple,
+                   on_start=None) -> dict:
+    """Two writers per document through ``LocalDocumentServiceFactory(
+    group.server)``, ``sidecar`` subscribed to every document's ("d",
+    "s"); ``ordering_rounds``. At ``fail_at`` (round, document index)
+    the leader dies (``leader_kill`` on ``timeline``, ``kill_leader()``),
+    the clock moves past the lease TTL, ``failover()`` promotes the
+    best-replicated follower, the old writers close (the deposed
+    server's fence absorbs their leaves), the sidecar re-attaches to
+    every document's new orderer, fresh writers load and the clock
+    moves one step; the first flush after that records ``first_ack``."""
+    _time_connect(group.server, times)
+    barrier = {"calls": 0}
+    replicate = group.replicate_before_fanout
+
+    def counted(*args, **kw):
+        barrier["calls"] += 1
+        with times.part("quorum barrier"):
+            return replicate(*args, **kw)
+
+    group.replicate_before_fanout = counted
+    rng = random.Random(seed)
+    writers = {}
+    for doc in docs:
+        sidecar.subscribe(group.server, doc, "d", "s")
+        _time_orderer(group.server, doc, times)
+        writers[doc] = _load_pair(api, group.server, doc, times, create=True)
+    rec = {"barrier": barrier}
+
+    def fail_over():
+        t0 = time.perf_counter()
+        rec["killed"] = group.leader_id
+        rec["head_at_kill"] = {d: group.server.get_orderer(d).op_log.last_seq
+                               for d in docs}
+        timeline.record("leader_kill", node=group.leader_id)
+        group.kill_leader()
+        clock.t += group.lease.ttl + 0.01
+        group.failover()
+        _time_connect(group.server, times)
+        with times.part("client"):
+            for d in docs:
+                for c in writers[d]:
+                    c.close()
+        resumed = {}
+        for d in docs:
+            sidecar.subscribe(group.server, d, "d", "s")
+            orderer = group.server.get_orderer(d)
+            resumed[d] = (orderer.sequencer.sequence_number,
+                          orderer.op_log.last_seq)
+            _time_orderer(group.server, d, times)
+        rec.update(resumed=resumed, failover_s=time.perf_counter() - t0)
+        for d in docs:
+            writers[d] = _load_pair(api, group.server, d, times, suffix="2")
+        rec["reload_s"] = time.perf_counter() - t0 - rec["failover_s"]
+        clock.t += ROUND_STEP_S
+
+    def after_doc(rnd, doc):
+        if "killed" in rec and "phases" not in rec:
+            timeline.record("first_ack", node=group.leader_id)
+            rec["phases"] = timeline.failover_phases()
+
+    rec.update(ordering_rounds(writers, docs, rounds, rng, times, sidecar,
+                               clock, event=fail_over, event_at=fail_at,
+                               after_doc=after_doc, on_start=on_start))
+    rec["writers"] = writers
+    return rec
+
+
+def fsync_probe(root: str) -> dict:
+    """The fsync latency of a jsonl append in ``root`` (the durable
+    roots' directory), and the filesystem it is on."""
+    import os
+    import tempfile
+
+    lat = []
+    with tempfile.NamedTemporaryFile("w", dir=root, suffix=".jsonl") as f:
+        for i in range(FSYNC_PROBES):
+            f.write(json.dumps({"sequenceNumber": i, "pad": "x" * 200})
+                    + "\n")
+            f.flush()
+            t0 = time.perf_counter()
+            os.fsync(f.fileno())
+            lat.append(time.perf_counter() - t0)
+    lat.sort()
+    fs, best = "unknown", ""
+    with open("/proc/mounts") as mounts:
+        for line in mounts:
+            parts = line.split()
+            if len(parts) > 2 and os.path.realpath(root).startswith(
+                    parts[1]) and len(parts[1]) > len(best):
+                best, fs = parts[1], f"{parts[2]} on {parts[1]}"
+    return {"median_ms": lat[len(lat) // 2] * 1e3,
+            "p99_ms": lat[int(len(lat) * 0.99)] * 1e3,
+            "mean_ms": statistics.mean(lat) * 1e3, "fs": fs}
+
+
+def _raise_nofile() -> tuple:
+    """Lift this process's open-file limit to its hard limit: every
+    durable document keeps its op log open, and a replicated one keeps
+    one per follower too (1024 documents: thousands of files)."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if hard == resource.RLIM_INFINITY or hard > soft:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    return soft, resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+
+
+def _ordering_sidecar(docs: int):
+    from fluidframework_tpu_torch.service import GpuMergeSidecar
+
+    return GpuMergeSidecar(device="cuda", executor="scan", max_docs=docs,
+                           capacity=SERVICE_CAPACITY,
+                           max_capacity=SERVICE_MAX_CAPACITY)
+
+
+def _check_served(server, docs: list, writers: dict, sidecar,
+                  what: str) -> int:
+    """Every document: both writers equal, the sidecar equal to them and
+    to its op log's scalar replay, and a second sidecar fed every op log
+    once, in order, equal to the live one. Returns the messages."""
+    shadow = _ordering_sidecar(len(docs))
+    messages = 0
+    for doc in docs:
+        texts = {_string(c).get_text() for c in writers[doc]}
+        sigs = {_string(c).signature() for c in writers[doc]}
+        served = sidecar.text(doc, "d", "s")
+        if texts != {served} or len(sigs) != 1:
+            raise AssertionError(f"{what} {doc}: the sidecar's text != both "
+                                 f"writers'")
+        log_msgs = server.read_ops(doc, 0)
+        seqs = [m.sequence_number for m in log_msgs]
+        if seqs != list(range(1, len(seqs) + 1)):
+            raise AssertionError(f"{what} {doc}: the op log is not "
+                                 f"contiguous")
+        messages += len(log_msgs)
+        if _oracle(_log_stream(log_msgs)) != (
+                served, sidecar.signature(doc, "d", "s")):
+            raise AssertionError(f"{what} {doc}: the sidecar != its op "
+                                 f"log's scalar replay")
+        shadow.track(doc, "d", "s")
+        for msg in log_msgs:
+            shadow.ingest(doc, msg)
+    shadow.apply()
+    shadow.sync()
+    for doc in docs:
+        if (shadow.text(doc, "d", "s"), shadow.signature(doc, "d", "s")) \
+                != (sidecar.text(doc, "d", "s"),
+                    sidecar.signature(doc, "d", "s")):
+            raise AssertionError(f"{what} {doc}: the live sidecar != a "
+                                 f"sidecar fed its op log once, in order")
+    if sidecar.host_mode_docs() or sidecar.overflowed():
+        raise AssertionError(f"{what}: {sidecar.host_mode_docs()} host "
+                             f"documents")
+    return messages
+
+
+def _canon_json(rec: dict) -> dict:
+    """A sequenced message's record without what reads the wall clock
+    (the client's and the driver's hops, a join's client-detail time)
+    and the crc that covers them."""
+    rec = {k: v for k, v in rec.items() if k != "_crc"}
+    rec["traces"] = [t for t in rec.get("traces") or []
+                     if t["service"] not in ("client", "driver")]
+    contents = rec.get("contents")
+    if isinstance(contents, dict) and "__clientdetail__" in contents:
+        detail = dict(contents["__clientdetail__"])
+        detail.pop("timestamp", None)
+        rec["contents"] = {**contents, "__clientdetail__": detail}
+    return rec
+
+
+def _host_split(times, before: dict, parts) -> str:
+    host = {k: v - before.get(k, 0.0) for k, v in times.s.items()}
+    return ", ".join(f"{p} {host.get(p, 0.0):.3f}" for p in parts)
+
+
+def _broker_leg(api, seed: int) -> dict:
+    """``PART_BROKER_DOCS`` documents through an in-process
+    ``BrokerServer`` and ``RemoteOrderingQueue`` over TCP, a sidecar on
+    each document; the same session on an ``InMemoryOrderingQueue``
+    gives the same sequenced streams."""
+    from fluidframework_tpu_torch.ops import cuda_merge
+
+    docs = [f"brk-{d}" for d in range(PART_BROKER_DOCS)]
+    loop = _Loop()
+    broker = api.BrokerServer(PART_PARTITIONS)
+    queue = None
+    try:
+        loop.run(broker.start(), 30)
+        queue = api.RemoteOrderingQueue("127.0.0.1", broker.port)
+        times = _SelfTimes()
+        clock = StepClock()
+        server = api.PartitionedServer(n_partitions=PART_PARTITIONS,
+                                       queue=queue, clock=clock)
+        sidecar = _ordering_sidecar(len(docs))
+        sidecar.ingest = times.wrap("sidecar ingest", sidecar.ingest)
+        launches = cuda_merge.LAUNCHES
+        t0 = time.perf_counter()
+        rec = partitioned_leg(api, server, docs, SERVICE_ROUNDS, seed + 7,
+                              times, sidecar, clock)
+        sidecar.sync()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = cuda_merge.LAUNCHES - launches
+        streams = {d: [_canon_json(api.message_to_json(m))
+                       for m in server.read_ops(d, 0)] for d in docs}
+        committed = [queue.committed(p) for p in range(PART_PARTITIONS)]
+        lag = queue.fanout_lag()
+    finally:
+        if queue is not None:
+            queue.close()
+        loop.run(broker.stop(), 30)
+        loop.close()
+    twin_clock = StepClock()
+    twin = api.PartitionedServer(n_partitions=PART_PARTITIONS,
+                                 queue=api.InMemoryOrderingQueue(
+                                     PART_PARTITIONS), clock=twin_clock)
+    partitioned_leg(api, twin, docs, SERVICE_ROUNDS, seed + 7, _SelfTimes(),
+                    None, twin_clock)
+    for d in docs:
+        if streams[d] != [_canon_json(api.message_to_json(m))
+                          for m in twin.read_ops(d, 0)]:
+            raise AssertionError(f"broker {d}: the sequenced stream over "
+                                 f"TCP != the in-memory queue's")
+    if committed != [twin.queue.committed(p) for p in range(PART_PARTITIONS)] \
+            or lag != 0:
+        raise AssertionError(f"broker: committed {committed}, lag {lag}")
+    if server.svc.nacks or twin.svc.nacks:
+        raise AssertionError("broker: nacks")
+    messages = _check_served(server, docs, rec["writers"], sidecar, "broker")
+    return {"launches": launches, "edits": rec["edits"], "wall_s": wall_s,
+            "messages": messages, "committed": committed}
+
+
+def phase_partitioned(seed: int) -> dict:
+    """The service cell's traffic through the partitioned ordering
+    service: ``PartitionedServer(n_partitions=4)``, every submit a record
+    of the ordering queue that the document's partition consumer
+    sequences, ``GpuMergeSidecar`` subscribed to every document. Three
+    sub-legs: the in-memory queue (1024 documents, the cell's 4 rounds);
+    the durable queue (``FileOrderingQueue`` with fsync, a
+    ``durable_dir`` op log and checkpoint per document; partitions 0 and
+    1 paused and resumed from their committed offsets at the midpoint,
+    the sidecar re-attached and replaying the durable logs, its
+    duplicates dropped); the networked broker (``_broker_leg``)."""
+    import os
+    import tempfile
+
+    import fluidframework_tpu_torch
+    from fluidframework_tpu_torch.ops import cuda_merge
+
+    api = ordering_api(fluidframework_tpu_torch)
+    docs = [f"part-{d}" for d in range(SERVICE_DOCS)]
+    out = {"launches": 0, "max_abs_err": 0}
+    soft, nofile = _raise_nofile()
+    probe = fsync_probe(tempfile.gettempdir())
+    log(f"fsync: {FSYNC_PROBES} appends of a 230-byte jsonl record in the "
+        f"temp directory {tempfile.gettempdir()} ({probe['fs']}): median "
+        f"{probe['median_ms']:.4f} ms, p99 {probe['p99_ms']:.4f} ms, mean "
+        f"{probe['mean_ms']:.4f} ms per fsync; the durable and replicated "
+        f"legs fsync every queue record, op-log append, checkpoint and "
+        f"follower append, and run {PART_DURABLE_ROUNDS} / {REPL_ROUNDS} of "
+        f"the cell's {SERVICE_ROUNDS} rounds, the resume / failover at its "
+        f"midpoint (depth cut); open-file limit "
+        f"{soft} -> {nofile}")
+    for leg in ("in-memory", "durable"):
+        times = _SelfTimes()
+        clock = StepClock()
+        t0 = time.perf_counter()
+        with (tempfile.TemporaryDirectory(prefix="ffpart-")
+              if leg == "durable" else contextlib.nullcontext()) as root:
+            if leg == "in-memory":
+                queue, durable_dir, rounds = (
+                    api.InMemoryOrderingQueue(PART_PARTITIONS), None,
+                    SERVICE_ROUNDS)
+            else:
+                durable_dir = root
+                queue = api.FileOrderingQueue(
+                    os.path.join(root, "queue"), PART_PARTITIONS, fsync=True)
+                rounds = PART_DURABLE_ROUNDS
+            server = api.PartitionedServer(n_partitions=PART_PARTITIONS,
+                                           durable_dir=durable_dir,
+                                           queue=queue, clock=clock)
+            sidecar = _ordering_sidecar(SERVICE_DOCS)
+            guard = _guard_device_half(sidecar)
+            held = _hold_scan_dispatch(sidecar)
+            sidecar.ingest = times.wrap("sidecar ingest", sidecar.ingest)
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            before = {}
+
+            def start_rounds():
+                before.update(times.s)
+                cuda_merge.LAUNCHES = 0
+                torch.cuda.synchronize()
+                prof.start()
+                before["t"] = time.perf_counter()
+
+            midpoint = (1, len(docs) // 2)
+            rec = partitioned_leg(
+                api, server, docs, rounds, seed, times, sidecar, clock,
+                resume_at=midpoint,
+                resume=PART_RESUMED if leg == "durable" else (),
+                on_start=start_rounds)
+            with times.part("sidecar apply"):
+                sidecar.sync()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - before["t"]
+            prof.stop()
+            launches = cuda_merge.LAUNCHES
+            busy = _device_busy_ms(prof)
+            split = _host_split(times, before, (
+                "client", "produce", "pump", "sidecar ingest",
+                "sidecar apply"))
+            t_check = time.perf_counter()
+            if server.svc.nacks:
+                raise AssertionError(f"partitioned {leg}: "
+                                     f"{len(server.svc.nacks)} nacks")
+            messages = _check_served(server, docs, rec["writers"], sidecar,
+                                     f"partitioned {leg}")
+            if launches <= 0 or not held or guard["calls"] <= 0:
+                raise AssertionError(f"partitioned {leg}: B1 launches "
+                                     f"{launches}, held {bool(held)}")
+            want, err = _check_window(held["table"], held["batch"],
+                                      f"the partitioned {leg} dispatch")
+            if [f for f, x, y in zip(want._fields, held["out"], want)
+                    if not torch.equal(x, y)]:
+                raise AssertionError(f"the partitioned {leg} dispatch's "
+                                     f"output differs from the plain "
+                                     f"version's")
+            extra = ""
+            if leg == "durable":
+                moved = rec["moved"]
+                if not moved or rec["dropped"] <= 0:
+                    raise AssertionError(f"partitioned durable: resumed "
+                                         f"{len(moved)} documents, dropped "
+                                         f"{rec['dropped']}")
+                counts = [queue._counts[p] for p in range(PART_PARTITIONS)]
+                committed = [queue.committed(p)
+                             for p in range(PART_PARTITIONS)]
+                if committed != [c - 1 for c in counts]:
+                    raise AssertionError(f"partitioned durable: committed "
+                                         f"{committed} of {counts}")
+                extra = (f"; partitions {list(PART_RESUMED)} paused and "
+                         f"resumed at the midpoint, before document "
+                         f"{midpoint[1]} of round {midpoint[0]} edits "
+                         f"({len(moved)} documents, committed offsets "
+                         f"{rec['committed']}): the new consumers read "
+                         f"{rec['redelivered']} queued records from the "
+                         f"committed offsets, the rebuilt orderers "
+                         f"sequenced the checkpointed clients' leaves, the "
+                         f"sidecar re-attached and replayed the durable op "
+                         f"logs from seq 0: sidecar_duplicate_drops_total "
+                         f"+{rec['dropped']:.0f}, fresh writers finished "
+                         f"the round ({rec['resume_s']:.3f} s); queue "
+                         f"records {counts}, committed {committed}; depth "
+                         f"cut: {rounds} of the cell's {SERVICE_ROUNDS} "
+                         f"rounds (an fsync per queue record and op-log "
+                         f"append, a write-temp + fsync + rename per "
+                         f"checkpoint and committed offset)")
+            log(f"partitioned {leg}: {SERVICE_DOCS} docs x "
+                f"{len(SERVICE_WRITERS)} writers, PartitionedServer("
+                f"{PART_PARTITIONS} partitions, "
+                f"{type(queue).__name__}"
+                f"{', fsync' if leg == 'durable' else ''}) -> "
+                f"GpuMergeSidecar scan {SERVICE_DOCS} x {SERVICE_CAPACITY}; "
+                f"{rounds} round(s) x {SERVICE_EDITS} edits per writer: "
+                f"{rec['edits']} edits, {messages} sequenced messages; "
+                f"rounds wall {wall_s:.3f} s"
+                + (f" ({rec['resume_s']:.3f} s of it the resume)"
+                   if leg == "durable" else "")
+                + f", {rec['edits'] / sum(rec['part_walls']):.1f} edits/s "
+                f"(leg wall {time.perf_counter() - t0:.3f} s); the "
+                f"rounds' host s: {split}; B1 launches {launches}; "
+                + _busy_line(busy, wall_s) + extra
+                + f"; checks: no nacks, every document == both writers == "
+                f"its op log's scalar replay, the sidecar == a second "
+                f"sidecar fed the op logs once, in order; one dispatch "
+                f"kernel == plain ({time.perf_counter() - t_check:.3f} s)")
+            out["launches"] += launches
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out[leg] = rec["edits"] / sum(rec["part_walls"])
+    brk = _broker_leg(api, seed)
+    log(f"partitioned broker: {PART_BROKER_DOCS} docs x "
+        f"{len(SERVICE_WRITERS)} writers through an in-process BrokerServer "
+        f"and RemoteOrderingQueue over TCP, {SERVICE_ROUNDS} rounds: "
+        f"{brk['edits']} edits, {brk['messages']} sequenced messages, "
+        f"{brk['edits'] / brk['wall_s']:.1f} edits/s; committed offsets "
+        f"{brk['committed']}; B1 launches {brk['launches']}; checks: every "
+        f"sequenced stream == the same session's on an "
+        f"InMemoryOrderingQueue, no nacks, every document == both writers "
+        f"== its op log's replay == a second sidecar")
+    out["launches"] += brk["launches"]
+    return out
+
+
+def phase_replicated(seed: int) -> dict:
+    """The service cell's traffic through the replicated sequencer:
+    ``ReplicatedSequencerGroup(root, n_followers=2)`` (quorum 2 of 3, an
+    injected step clock, a ``FleetTimeline``), writers through
+    ``LocalDocumentServiceFactory(group.server)``, ``GpuMergeSidecar``
+    subscribed to every document; a leader kill, lease lapse and
+    ``failover()`` at the midpoint, then fresh writers on the promoted
+    leader."""
+    import tempfile
+
+    import fluidframework_tpu_torch
+    from fluidframework_tpu_torch.ops import cuda_merge
+
+    api = ordering_api(fluidframework_tpu_torch)
+    docs = [f"repl-{d}" for d in range(SERVICE_DOCS)]
+    times = _SelfTimes()
+    clock = StepClock()
+    timeline = api.FleetTimeline(clock=clock)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ffrepl-") as root:
+        group = api.ReplicatedSequencerGroup(
+            root, n_followers=REPL_FOLLOWERS, clock=clock,
+            timeline=timeline, server_kwargs={"clock": clock})
+        quorum = group.quorum
+        sidecar = _ordering_sidecar(SERVICE_DOCS)
+        guard = _guard_device_half(sidecar)
+        held = _hold_scan_dispatch(sidecar)
+        sidecar.ingest = times.wrap("sidecar ingest", sidecar.ingest)
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        before = {}
+
+        def start_rounds():
+            before.update(times.s)
+            cuda_merge.LAUNCHES = 0
+            torch.cuda.synchronize()
+            prof.start()
+            before["t"] = time.perf_counter()
+
+        fail_at = (1, len(docs) // 2)
+        rec = replicated_leg(api, group, docs, REPL_ROUNDS, seed, times,
+                             sidecar, clock, timeline, fail_at,
+                             on_start=start_rounds)
+        with times.part("sidecar apply"):
+            sidecar.sync()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - before["t"]
+        prof.stop()
+        launches = cuda_merge.LAUNCHES
+        busy = _device_busy_ms(prof)
+        split = _host_split(times, before, (
+            "client", "orderer", "quorum barrier", "sidecar ingest",
+            "sidecar apply"))
+        t_check = time.perf_counter()
+        bad = [d for d, (seq, head) in rec["resumed"].items()
+               if seq != head or head < rec["head_at_kill"][d]]
+        if bad:
+            raise AssertionError(f"replicated: {len(bad)} promoted orderers "
+                                 f"off their op log's head, e.g. {bad[0]}")
+        phases = rec.get("phases")
+        if phases is None or round(sum(
+                v for k, v in phases.items() if k != "total_s"), 9) != \
+                phases["total_s"]:
+            raise AssertionError(f"replicated: failover_phases {phases}")
+        messages = _check_served(group.server, docs, rec["writers"],
+                                 sidecar, "replicated")
+        if launches <= 0 or not held or guard["calls"] <= 0:
+            raise AssertionError(f"replicated: B1 launches {launches}")
+        want, err = _check_window(held["table"], held["batch"],
+                                  "the replicated dispatch")
+        if [f for f, x, y in zip(want._fields, held["out"], want)
+                if not torch.equal(x, y)]:
+            raise AssertionError("the replicated dispatch's output differs "
+                                 "from the plain version's")
+        heads = [f.total_head() for f in group.followers]
+        (pre_edits, post_edits), (pre_s, post_s) = (rec["part_edits"],
+                                                    rec["part_walls"])
+        pre, post = pre_edits / pre_s, post_edits / post_s
+        log(f"replicated: {SERVICE_DOCS} docs x {len(SERVICE_WRITERS)} "
+            f"writers, ReplicatedSequencerGroup (leader + {REPL_FOLLOWERS} "
+            f"followers, quorum {quorum} of {REPL_FOLLOWERS + 1}, every "
+            f"append fsynced on each node, step clock) -> GpuMergeSidecar "
+            f"scan {SERVICE_DOCS} x {SERVICE_CAPACITY}; {REPL_ROUNDS} round(s) "
+            f"x {SERVICE_EDITS} edits per writer (depth cut of the cell's "
+            f"{SERVICE_ROUNDS}): {rec['edits']} edits, {messages} sequenced "
+            f"messages; {rec['killed']} killed at the midpoint, before "
+            f"document {fail_at[1]} of round {fail_at[0]} edits, "
+            f"lease lapsed, {group.leader_id} promoted at epoch "
+            f"{group.epoch} (failover {rec['failover_s']:.3f} s host with "
+            f"the sidecar's re-attach, fresh writers' loads "
+            f"{rec['reload_s']:.3f} s); failover_phases {phases}; edits/s "
+            f"before {pre:.1f} ({pre_edits} edits in {pre_s:.3f} s), after "
+            f"{post:.1f} ({post_edits} in {post_s:.3f} s) (rounds wall "
+            f"{wall_s:.3f} s with the failover, leg wall "
+            f"{time.perf_counter() - t0:.3f} s); "
+            f"quorum waits {rec['barrier']['calls']}, max follower lag "
+            f"{group.max_lag_observed}, surviving follower heads {heads}; "
+            f"the rounds' host s: {split}; B1 launches {launches}; "
+            + _busy_line(busy, wall_s)
+            + f"; checks: every promoted orderer's seq == its op log's "
+            f"head, every document == both writers == its op log's scalar "
+            f"replay, the live sidecar == a shadow sidecar fed the new "
+            f"leader's durable logs from seq 0, the phases sum to total_s; "
+            f"one dispatch kernel == plain "
+            f"({time.perf_counter() - t_check:.3f} s)")
+    return {"launches": launches, "max_abs_err": err, "pre": pre,
+            "post": post}
+
+
+# ----------------------------------------------------------------------
 # times at the main path's shape
 
 def _time_ms(fn, reps: int, launches: int = 1) -> list:
@@ -4939,6 +5649,10 @@ def main() -> int:
         mark("dds")
         framework_rec = phase_framework()
         mark("framework")
+        partitioned_rec = phase_partitioned(args.seed)
+        mark("partitioned")
+        replicated_rec = phase_replicated(args.seed)
+        mark("replicated")
         time_rec = phase_time(args.seed)
         mark("times")
         log("phase walls: " + ", ".join(
@@ -4948,7 +5662,9 @@ def main() -> int:
                     pool_rec["max_abs_err"], matrix_rec["max_abs_err"],
                     service_rec["max_abs_err"], ingress_rec["max_abs_err"],
                     serve_rec["max_abs_err"], dds_rec["max_abs_err"],
-                    fuzz_rec["max_abs_err"], framework_rec["max_abs_err"])
+                    fuzz_rec["max_abs_err"], framework_rec["max_abs_err"],
+                    partitioned_rec["max_abs_err"],
+                    replicated_rec["max_abs_err"])
         paths = {"main path": main_rec["launches"],
                  "fuzz": fuzz_rec["launches"],
                  "config10": pool_rec["config10_launches"],
@@ -4960,7 +5676,9 @@ def main() -> int:
                  "ingress": ingress_rec["launches"],
                  "serve": serve_rec["launches"],
                  "dds": dds_rec["launches"],
-                 "framework": framework_rec["launches"]}
+                 "framework": framework_rec["launches"],
+                 "partitioned": partitioned_rec["launches"],
+                 "replicated": replicated_rec["launches"]}
     except Exception:  # noqa: BLE001 - report any failed phase, exit 1
         traceback.print_exc()
         log("FAIL")

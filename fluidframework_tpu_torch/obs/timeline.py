@@ -1,20 +1,33 @@
 """FleetTimeline — the causally-ordered cross-node event log.
 
-A copy of the reference's ``obs/timeline.py``, trimmed to what the port
-uses: every node-level lifecycle event is recorded as one
-:class:`TimelineEvent` with a monotonically increasing sequence number,
-so an incident reads as ONE causally-ordered timeline. In the port the
-mesh pool records its live migrations here (``MeshShardedPool(timeline=
-...)``); the lease, epoch and failover kinds belong to the replicated
-plane, a later layer of the port, and stay in the vocabulary so it is
-the reference's.
+A copy of the reference's ``obs/timeline.py``: every node-level
+lifecycle event — lease grant/renew/expire, epoch fence advances,
+deposed-write refusals, promotions, anti-entropy suffix pulls, mesh
+migrations — is recorded as one :class:`TimelineEvent` with a
+monotonically increasing sequence number, so an incident reads as ONE
+causally-ordered timeline instead of per-node fragments. The replicated
+plane (``service/replication.py``) records its lease, epoch and
+failover events here, the mesh pool its live migrations
+(``MeshShardedPool(timeline=...)``).
 
 Determinism contract: the timeline is clock-injectable; under a step
 clock a seeded run records a bit-identical event sequence, and
 ``deterministic_events()`` is that sequence (everything wall-clock or
 unhashable excluded by construction). Causal order is the record
-order: the ``seq`` assigned at record time — timestamps may tie, seq
-never does.
+order: the in-process multi-node harnesses drive every node
+synchronously, so the ``seq`` assigned at record time IS the
+happened-before order — timestamps may tie, seq never does.
+
+``failover_phases()`` decomposes the last leader-loss incident into
+the four phases the timeline can actually attribute:
+
+    detection_s     host loss -> the lease lapse is observed
+    anti_entropy_s  lease lapse observed -> new epoch minted (the
+                    candidate's flush + suffix pulls happen here)
+    promotion_s     epoch minted -> the promoted server is serving
+    first_ack_s     serving -> the first post-failover client ack
+
+The phases sum to ``first_ack.t - leader_kill.t`` exactly.
 
 The kind vocabulary is a PURE LITERAL (the CANONICAL_HOPS idiom):
 ``timeline_events_total{kind}`` stays bounded by code, and an unknown
@@ -140,3 +153,48 @@ class FleetTimeline:
             ))
             out.append((e.seq, round(e.t, 9), e.node, e.kind, fields))
         return out
+
+    # -- the failover decomposition ------------------------------------
+
+    def failover_phases(self) -> Optional[dict]:
+        """Decompose the LAST leader-loss incident (see the module
+        docstring for the phase boundaries). None until a complete
+        ``leader_kill -> lease_expire -> epoch_advance -> promotion ->
+        first_ack`` chain exists."""
+        kills = [e for e in self._events if e.kind == "leader_kill"]
+        if not kills:
+            return None
+        kill = kills[-1]
+        after = [e for e in self._events if e.seq > kill.seq]
+
+        def first(kind: str) -> Optional[TimelineEvent]:
+            return next((e for e in after if e.kind == kind), None)
+
+        expire = first("lease_expire")
+        epoch = first("epoch_advance")
+        promo = first("promotion")
+        ack = first("first_ack")
+        if None in (expire, epoch, promo, ack):
+            return None
+        return {
+            "detection_s": round(expire.t - kill.t, 9),
+            "anti_entropy_s": round(epoch.t - expire.t, 9),
+            "promotion_s": round(promo.t - epoch.t, 9),
+            "first_ack_s": round(ack.t - promo.t, 9),
+            "total_s": round(ack.t - kill.t, 9),
+        }
+
+    def format(self) -> str:
+        """Human view: one line per event, causal order, timestamps
+        relative to the first retained event."""
+        if not self._events:
+            return "(no timeline events recorded)"
+        t0 = self._events[0].t
+        lines = []
+        for e in self._events:
+            fields = " ".join(
+                f"{k}={v}" for k, v in sorted(e.fields.items()))
+            lines.append(
+                f"  #{e.seq:<4} +{e.t - t0:9.3f}s "
+                f"{e.node or '-':<8} {e.kind:<14} {fields}".rstrip())
+        return "\n".join(lines)

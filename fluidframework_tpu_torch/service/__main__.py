@@ -34,9 +34,7 @@ prints the cost-attribution view (obs/heat.py — top-k hot documents
 by attributed device-ms and top-k tenants off the usage ledger;
 ``--top-k N`` overrides the server's default cut).
 
-A copy of the reference's ``service/__main__.py``. ``--partitions`` and
-``--broker`` exit with an error naming the module they need until the
-partitioned queue and the broker are ported.
+A copy of the reference's ``service/__main__.py``.
 """
 from __future__ import annotations
 
@@ -156,13 +154,12 @@ def main() -> None:
     parser.add_argument("--partitions", type=int, default=0,
                         help="route through N queue partitions (the "
                              "scale-out pipeline shape); 0 = inline "
-                             "orderer. Refused until "
-                             "service.partitioning is ported")
+                             "orderer")
     parser.add_argument("--broker", default=None,
                         help="host:port of a running "
-                             "service.broker — the networked ordering "
-                             "queue (partitions span hosts). Refused "
-                             "until service.broker is ported")
+                             "fluidframework_tpu_torch.service.broker — "
+                             "the networked ordering queue (partitions "
+                             "span hosts)")
     parser.add_argument("--qos", action="store_true",
                         help="enable admission control + "
                              "backpressure (docs/QOS.md): token-"

@@ -34,9 +34,7 @@ per-connection outbound frames go through a queue drained by a writer
 task, so a slow client never blocks sequencing (broadcaster batching,
 lambdas/src/broadcaster/lambda.ts:49).
 
-A copy of the reference's ``service/ingress.py``; ``run_server`` here
-serves the inline orderer only, and refuses ``partitions`` / ``broker``
-until the partitioned queue and the broker are ported.
+A copy of the reference's ``service/ingress.py``.
 """
 from __future__ import annotations
 
@@ -1363,32 +1361,59 @@ def run_server(host: str = "127.0.0.1", port: int = 7070,
     """Blocking entry point (the tinylicious analogue; see
     service/__main__.py). ``data_dir`` makes every document durable:
     op log, summaries and deli checkpoints survive restarts.
-    ``partitions`` > 0 (the partitioned queue pipeline) and
-    ``broker`` = "host:port" (the networked queue) need
-    ``service.partitioning`` and ``service.broker``, which this
-    package has not ported: either raises ``SystemExit`` naming the
-    missing module.
+    ``partitions`` > 0 routes everything through the partitioned
+    queue pipeline (the kafka-deployment shape) instead of the inline
+    orderer; ``broker`` = "host:port" of a running
+    ``service.broker`` — the NETWORKED queue, so partitions span
+    processes/hosts (services-ordering-rdkafka's role).
     ``qos_enabled`` turns on admission control + backpressure
     (docs/QOS.md): token-bucket limits scaled from
     ``qos_ops_per_sec``, pressure-tier shedding, and a circuit
     breaker around checkpoint writes. ``slo_enabled`` attaches the
     default serving objectives (:func:`default_slo_objectives`) to
     an obs.SloEngine serving the ``slo`` frame / ``--dump-slo``."""
-    if broker is not None or partitions > 0:
-        # the partitioned queue pipeline and the networked broker are
-        # not in this package yet: refuse rather than serve the inline
-        # orderer under flags that asked for something else
-        missing = ("service.broker" if broker is not None
-                   else "service.partitioning")
-        raise SystemExit(
-            f"--{'broker' if broker is not None else 'partitions'} "
-            f"needs {missing}, which fluidframework_tpu_torch has not "
-            "ported yet; run without it for the inline orderer"
+    queue = None
+    if broker is not None:
+        from .broker import RemoteOrderingQueue
+
+        bhost, bport = _parse_hostport(broker)
+        queue = RemoteOrderingQueue(bhost, bport)
+        if partitions <= 0:
+            partitions = queue.n_partitions
+        elif partitions != queue.n_partitions:
+            # document->partition routing is crc32 % N: a consumer
+            # disagreeing with the broker's N splits document ordering
+            # across partitions (or produces out-of-range)
+            raise SystemExit(
+                f"--partitions {partitions} disagrees with the "
+                f"broker's {queue.n_partitions}; drop --partitions "
+                "or match it"
+            )
+        import os as _os
+
+        fresh_state = data_dir is None or not _os.path.exists(
+            _os.path.join(data_dir, "layout.json")
         )
+        if fresh_state and any(
+            queue.committed(p) >= 0 for p in range(partitions)
+        ):
+            # the broker has committed progress but this consumer has
+            # no prior document state (no --data-dir, or an empty
+            # one): resuming past the committed offsets would bring
+            # every document up silently EMPTY
+            raise SystemExit(
+                "broker has committed offsets but this server has no "
+                "prior state: resuming would skip all applied "
+                "history. Point --data-dir at the original state (or "
+                "a replacement host's copy)."
+            )
     # the marker records WHICH KIND of queue (local file vs networked
     # broker), not the broker's address — a respelled host or a
     # re-launched broker port must not brick the data dir
-    _check_durable_layout(data_dir, partitions)
+    _check_durable_layout(
+        data_dir, partitions,
+        queue_source="broker" if broker else "local",
+    )
     qos = None
     storage_breaker = None
     if qos_enabled:
@@ -1411,8 +1436,15 @@ def run_server(host: str = "127.0.0.1", port: int = 7070,
             # against queue depths that build over seconds
             pressure=PressureMonitor(min_interval_s=0.05),
         )
-    local = LocalServer(durable_dir=data_dir,
-                        storage_breaker=storage_breaker)
+    if partitions > 0:
+        from .partitioning import PartitionedServer
+
+        local = PartitionedServer(
+            n_partitions=partitions, durable_dir=data_dir,
+            queue=queue, storage_breaker=storage_breaker)
+    else:
+        local = LocalServer(durable_dir=data_dir,
+                            storage_breaker=storage_breaker)
     # cost-attribution plane (obs/heat.py): the per-document heat
     # ledger (charged by a sidecar when one is wired; served either
     # way) and the per-tenant usage rollup — both LRU-capped, both

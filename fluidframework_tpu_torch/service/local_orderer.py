@@ -6,10 +6,8 @@ localOrderer.ts (``setupLambdas`` :237) — the whole service in-proc
 over an in-memory Kafka; used by tinylicious/local-server and every
 integration test (SURVEY §4 pillar (c)).
 
-The port's copy leaves out the replicated plane's write fence (the
-epoch fence, the quorum-loss rollback and the owed leaves) and the
-native sequencer core: they come with the replication and native
-layers.
+The port's copy leaves out the native sequencer core
+(``FFTPU_NATIVE_SEQUENCER``): it comes with the native layer.
 """
 from __future__ import annotations
 
@@ -38,7 +36,8 @@ class LocalOrderer:
 
     def __init__(self, document_id: str, lumberjack=None,
                  storage=None, checkpoint_every: int = 1,
-                 storage_breaker=None, clock=None):
+                 storage_breaker=None, write_fence=None,
+                 clock=None):
         from .telemetry import Lumberjack
         self.document_id = document_id
         self.lumberjack = lumberjack or Lumberjack()
@@ -47,6 +46,13 @@ class LocalOrderer:
         # the checkpoint-ahead rebuild below
         self.clock = clock
         self.storage = storage
+        # optional epoch-fence hook (service/replication.py), called
+        # with the operation name ("submit"/"connect"/"disconnect" —
+        # the truthful context for refusal diagnostics): consulted
+        # BEFORE ticketing, so a deposed leader refuses a write
+        # without consuming a sequence number — its sequencer state
+        # stays aligned with its (refused) log
+        self.write_fence = write_fence
         # optional qos.CircuitBreaker around checkpoint writes: a
         # hard-down disk degrades durability (the op log still has
         # every op; restart fast-forwards from it) instead of taking
@@ -57,6 +63,14 @@ class LocalOrderer:
         self.sequencer = DocumentSequencer(document_id, clock=clock)
         self._checkpoint_every = checkpoint_every
         self._since_checkpoint = 0
+        # leaves that could not replicate during a quorum-loss
+        # degraded window (absorbed, not sequenced): settled at the
+        # client's next join — sequencing the owed leave FIRST resets
+        # the csn watermark, or the rejoining client's resubmits
+        # would be silently swallowed by the duplicate-csn dedupe
+        # (found by the netsplit differential as a merge-tree
+        # view-length divergence three hops downstream)
+        self._owed_leaves: set[str] = set()
         self.scriptorium = ScriptoriumLambda(self.op_log, clock=clock)
         self.broadcaster = BroadcasterLambda(clock=clock)
         self.scribe = ScribeLambda(
@@ -134,11 +148,113 @@ class LocalOrderer:
     # ingress (alfred submitOp path)
 
     def connect(self, detail: ClientDetail) -> SequencedMessage:
+        if self.write_fence is not None:
+            # refuse BEFORE the join consumes a sequence number: a
+            # deposed leader's sequencer must stay aligned with its
+            # (refused) log, or the unwind path's leave trips the
+            # log-contiguity assert instead of the fence
+            self.write_fence("connect")
+            if detail.client_id in self._owed_leaves:
+                # settle the leave the degraded window absorbed (the
+                # gate above proved availability): the sequenced
+                # leave resets the client's csn watermark, so the
+                # reconnect's fresh csn 1 is a new stream, never a
+                # "duplicate" the dedupe silently swallows
+                pre_leave = self.sequencer.checkpoint()
+                leave = self.sequencer.client_leave(detail.client_id)
+                if leave is not None:
+                    try:
+                        self._dispatch(leave)
+                    except self._unavailable_error():
+                        # the window reopened between the gate and
+                        # the leave's own barrier: still owed
+                        self._rollback_ticket(pre_leave)
+                        raise
+                self._owed_leaves.discard(detail.client_id)
+            # the join may still be the FIRST write to discover a
+            # quorum loss (the barrier's deadline, not the cached
+            # gate): snapshot so the refused ticket rolls back
+            pre = self.sequencer.checkpoint()
+            join = self.sequencer.client_join(detail)
+            try:
+                self._dispatch(join)
+            except self._unavailable_error():
+                self._rollback_ticket(pre)
+                raise
+            return join
         join = self.sequencer.client_join(detail)
         self._dispatch(join)
         return join
 
+    def _unavailable_error(self):
+        from .replication import QuorumUnavailableError
+
+        return QuorumUnavailableError
+
+    def _rollback_ticket(self, pre: dict) -> None:
+        """Unwind a ticket whose replication was refused (quorum
+        unavailable): the op log already unwound its append, so
+        restoring the pre-ticket sequencer state re-aligns stream
+        position, client table and msn — the seq slot is re-issued
+        to the next accepted write. Only legal because the refused
+        message never reached the broadcaster (scriptorium raises
+        before the scribe/broadcaster stages run).
+
+        The DURABLE LOG is the reconciliation floor: a re-entrant
+        dispatch (a scribe loopback ack queued behind the ticketed
+        op) may have quorum-committed intermediate ops AFTER the
+        checkpoint was taken — rolling the sequencer below the log
+        head would re-issue a seq the quorum already holds, so the
+        restore fast-forwards back to the head. (A client whose op
+        landed in that window may then see one csn-gap nack and ride
+        the normal reconnect path — rare, loud, and ordered; never a
+        fork.) Refused messages still queued from the aborted pump
+        are dropped: never persisted, never fanned out, their
+        submitters still hold them pending."""
+        self.sequencer = DocumentSequencer.restore(pre, clock=self.clock)
+        self.sequencer.fast_forward(self.op_log.last_seq)
+        self._dispatch_queue.clear()
+        self.scribe.protocol.sequence_number = \
+            self.sequencer.sequence_number
+        self.scribe.protocol.minimum_sequence_number = \
+            self.sequencer.minimum_sequence_number
+
     def disconnect(self, client_id: str) -> Optional[SequencedMessage]:
+        if self.write_fence is not None:
+            from .replication import FencedWriteError
+
+            try:
+                self.write_fence("disconnect")
+            except FencedWriteError:
+                # teardown on a DEPOSED node must not detonate:
+                # session close() runs this mid-cleanup (a transport
+                # death during the deposed window), and a leave a
+                # fenced node sequences could never reach a client
+                # anyway — skip sequencing it; the client's lifecycle
+                # continues on the real leader
+                return None
+            except self._unavailable_error():
+                # quorum-loss degraded window: the leave cannot
+                # replicate — absorbed, but OWED (see connect): the
+                # cached verdict refuses it pre-ticket, so teardown
+                # costs a flag, not a quorum deadline
+                self._owed_leaves.add(client_id)
+                return None
+            pre = self.sequencer.checkpoint()
+            leave = self.sequencer.client_leave(client_id)
+            if leave is not None:
+                try:
+                    self._dispatch(leave)
+                except self._unavailable_error():
+                    # a leave that cannot replicate (quorum-loss
+                    # window) is absorbed like the fenced teardown —
+                    # but OWED: the client's next join sequences it
+                    # first, resetting the csn watermark the stale
+                    # entry would otherwise hold
+                    self._rollback_ticket(pre)
+                    self._owed_leaves.add(client_id)
+                    return None
+            return leave
         leave = self.sequencer.client_leave(client_id)
         if leave is not None:
             self._dispatch(leave)
@@ -146,6 +262,24 @@ class LocalOrderer:
 
     def submit(self, client_id: str,
                op: DocumentMessage) -> Optional[Nack]:
+        pre = None
+        if self.write_fence is not None:
+            try:
+                # raises FencedWriteError when deposed; the
+                # availability gate (quorum-loss degraded mode)
+                # raises the RETRIABLE refusal, converted to a
+                # throttle nack here so the client's pending/resubmit
+                # path rides it with no new machinery
+                self.write_fence("submit")
+            except self._unavailable_error() as e:
+                return self._unavailable_nack(op, e)
+            # full checkpoint, not a scalar snapshot: checkpoint()/
+            # restore() is the sequencer's rollback surface, and its
+            # cost is O(connected clients of THIS document) — the
+            # collaborator count, not the fleet — paid only on the
+            # replicated plane (write_fence unset = plain plane,
+            # zero overhead)
+            pre = self.sequencer.checkpoint()
         result = self.sequencer.ticket(client_id, op)
         if result.nack is not None:
             # structured service telemetry (Lumberjack, lumber.ts:23)
@@ -156,8 +290,36 @@ class LocalOrderer:
             })
             return result.nack
         if result.message is not None:
-            self._dispatch(result.message)
+            if pre is None:
+                self._dispatch(result.message)
+                return None
+            try:
+                self._dispatch(result.message)
+            except self._unavailable_error() as e:
+                # the quorum barrier's deadline lapsed mid-append:
+                # the op log unwound its record; unwind the ticket
+                # too and answer with the retriable nack
+                self._rollback_ticket(pre)
+                return self._unavailable_nack(op, e)
         return None
+
+    def _unavailable_nack(self, op: DocumentMessage, e) -> Nack:
+        from ..qos.policy import REASON_UNAVAILABLE
+        from ..protocol.messages import NackErrorType
+
+        nack = Nack(
+            operation=op, sequence_number=0,
+            error_type=NackErrorType.THROTTLING,
+            message=str(e),
+            retry_after_seconds=e.retry_after_seconds,
+            shed_class=REASON_UNAVAILABLE,
+        )
+        self.lumberjack.log("nack", nack.message, {
+            "documentId": self.document_id,
+            "errorType": int(nack.error_type),
+            "shedClass": REASON_UNAVAILABLE,
+        })
+        return nack
 
     # ------------------------------------------------------------------
 

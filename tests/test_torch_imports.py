@@ -168,6 +168,20 @@ FRAMEWORK_MODULES = (
     "fluidframework_tpu_torch.framework",
 )
 
+# the ordering plane's scale-out and replication layer, named for the
+# same reason (``local_orderer`` and ``obs.timeline`` are whole copies
+# since this layer came)
+ORDERING_MODULES = (
+    "fluidframework_tpu_torch.service.core_interfaces",
+    "fluidframework_tpu_torch.service.local_orderer",
+    "fluidframework_tpu_torch.service.partitioning",
+    "fluidframework_tpu_torch.service.replication",
+    "fluidframework_tpu_torch.service.broker",
+    "fluidframework_tpu_torch.service.moira",
+    "fluidframework_tpu_torch.service.foreman",
+    "fluidframework_tpu_torch.obs.timeline",
+)
+
 _CHILD = r"""
 import importlib, json, pkgutil, sys
 import fluidframework_tpu_torch as port
@@ -201,8 +215,8 @@ def test_port_import_loads_no_jax():
     assert len(out["names"]) >= 20
     assert set(ROUTE_MODULES + TREE_MODULES + POOL_MODULES
                + MATRIX_MODULES + OBS_MODULES + SERVICE_MODULES
-               + INGRESS_MODULES + DDS_MODULES + FRAMEWORK_MODULES) \
-        <= set(out["names"])
+               + INGRESS_MODULES + DDS_MODULES + FRAMEWORK_MODULES
+               + ORDERING_MODULES) <= set(out["names"])
     assert out["bad"] == []
 
 
@@ -214,7 +228,8 @@ def test_source_scan_covers_the_route_modules():
     scanned = set(_sources())
     for name in (ROUTE_MODULES + TREE_MODULES + POOL_MODULES
                  + MATRIX_MODULES + OBS_MODULES + SERVICE_MODULES
-                 + INGRESS_MODULES + DDS_MODULES + FRAMEWORK_MODULES):
+                 + INGRESS_MODULES + DDS_MODULES + FRAMEWORK_MODULES
+                 + ORDERING_MODULES):
         path = REPO.joinpath(*name.split(".")).with_suffix(".py")
         if not path.exists():  # a package
             path = path.with_suffix("") / "__init__.py"
@@ -340,3 +355,103 @@ def test_cuda_wrapper_rejects_cpu_tensors():
                       for _ in OpBatch._fields))
     with pytest.raises(ValueError, match="CUDA"):
         apply_window_cuda(table, batch)
+
+
+def test_ordering_modules_import_alone():
+    """Each module of the ordering layer, imported by itself in a fresh
+    interpreter, loads neither JAX nor the JAX package."""
+    child = ("import importlib, json, sys\n"
+             f"for name in {list(ORDERING_MODULES)!r}:\n"
+             "    importlib.import_module(name)\n"
+             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax'"
+             " or m.startswith('jax.') or m == 'fluidframework_tpu'"
+             " or m.startswith('fluidframework_tpu.'))))\n")
+    env = dict(os.environ)
+    env.pop("FFTPU_SANITIZE", None)
+    proc = subprocess.run([sys.executable, "-c", child], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert json.loads(proc.stdout.splitlines()[-1]) == []
+
+
+def _start_service(args, data_dir):
+    """``python -m fluidframework_tpu_torch.service`` on an ephemeral
+    port: the process and the port it printed (None if it exited)."""
+    import re
+
+    env = dict(os.environ)
+    env.pop("FFTPU_SANITIZE", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fluidframework_tpu_torch.service",
+         "--port", "0", "--data-dir", str(data_dir), *args],
+        cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    line = proc.stdout.readline()
+    found = re.search(r"listening on [\w.]+:(\d+)", line)
+    return proc, (int(found.group(1)) if found else None), line
+
+
+def test_partitioned_service_cli_serves_and_refuses_layout_change(tmp_path):
+    """``--partitions 2`` serves a TCP session through ``run_server``'s
+    ``PartitionedServer`` (a writer and a reader equal), and a restart
+    of the same data dir under another partition count is refused, as
+    the reference refuses it."""
+    import time
+
+    from fluidframework_tpu_torch.drivers import SocketDocumentServiceFactory
+    from fluidframework_tpu_torch.loader import Container
+
+    data = tmp_path / "data"
+    proc, port, line = _start_service(["--partitions", "2"], data)
+    try:
+        assert port is not None, line
+        factory = SocketDocumentServiceFactory("127.0.0.1", port)
+        svc = factory.create_document_service("cli-doc")
+        try:
+            with svc.lock:
+                c = Container.load(svc, client_id="writer")
+                s = c.runtime.create_datastore("d").create_channel(
+                    "sharedstring", "s")
+                for i in range(4):
+                    s.insert_text(s.get_length(), f"edit {i}; ")
+                c.flush()
+            deadline = time.monotonic() + 60
+            while True:
+                with svc.lock:
+                    if c.runtime.pending.count == 0:
+                        break
+                assert time.monotonic() < deadline, "no acks"
+                time.sleep(0.02)
+            reader_svc = factory.create_document_service("cli-doc")
+            try:
+                with reader_svc.lock:
+                    r = Container.load(reader_svc, client_id="reader")
+                    got = r.runtime.get_datastore("d").get_channel("s")
+                    with svc.lock:
+                        assert got.get_text() == s.get_text() == "".join(
+                            f"edit {i}; " for i in range(4))
+                        assert got.signature() == s.signature()
+                    r.close()
+            finally:
+                reader_svc.close()
+            with svc.lock:
+                c.close()
+        finally:
+            svc.close()
+    finally:
+        proc.terminate()
+        proc.wait(30)
+        proc.stdout.close()
+    with open(data / "layout.json") as f:
+        assert json.load(f) == {"mode": "partitioned", "partitions": 2,
+                                "queue": "local"}
+    proc, port, line = _start_service(["--partitions", "4"], data)
+    out = line + proc.stdout.read()
+    assert proc.wait(60) != 0 and port is None
+    proc.stdout.close()
+    assert "refusing to start" in out and "'partitions': 4" in out
+    from fluidframework_tpu.service.ingress import _check_durable_layout
+
+    with pytest.raises(SystemExit) as refused:
+        _check_durable_layout(str(data), 4)
+    assert str(refused.value.code) in out  # the reference's refusal

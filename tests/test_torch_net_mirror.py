@@ -10,7 +10,7 @@ Left out, with the module they wait for (the port does not have it yet):
 - ``test_net_service.py::test_multi_process_stress_converges``:
   ``tools.net_stress``;
 - ``test_net_service.py::test_multi_process_stress_converges_partitioned``:
-  ``tools.net_stress`` and ``service.partitioning``.
+  ``tools.net_stress``.
 """
 import pytest
 

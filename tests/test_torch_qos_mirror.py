@@ -4,14 +4,7 @@ and fleet observability (``test_fleet_obs``), run on both packages
 (``test_torch_service_layers.run_mirrored``: the reference's own test
 source, imports rewired).
 
-Left out, with the module they wait for (the port does not have it yet):
-
-- ``test_qos.py::test_partitioned_server_wires_queue_lag_pressure``:
-  ``service.partitioning``;
-- ``test_qos.py::test_remote_queue_lag_never_wired_on_serving_path``:
-  ``service.broker`` and ``service.partitioning``;
-- ``test_fleet_obs.py::test_failover_phases_decompose_and_sum_exactly``:
-  the fleet timeline's ``failover_phases`` (the replicated plane).
+No case is left out.
 
 Mirrored by hand, since they build a merge sidecar (the reference's
 ``TpuMergeSidecar``, the port's ``GpuMergeSidecar(device="cpu")``):
@@ -30,18 +23,7 @@ from test_torch_service_layers import (
 )
 
 MIRRORED = ("test_qos", "test_slo_serving", "test_fleet_obs")
-LEFT_OUT = {
-    "test_qos": {
-        "test_partitioned_server_wires_queue_lag_pressure":
-            "service.partitioning",
-        "test_remote_queue_lag_never_wired_on_serving_path":
-            "service.broker",
-    },
-    "test_fleet_obs": {
-        "test_failover_phases_decompose_and_sum_exactly":
-            "obs.timeline.failover_phases",
-    },
-}
+LEFT_OUT: dict = {}
 BY_HAND = {
     ("test_qos", "test_sidecar_breaker_scripted_fault_full_cycle"),
     ("test_slo_serving",

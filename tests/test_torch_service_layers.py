@@ -13,12 +13,7 @@ their own, and a fixture the reference module defines for itself is
 built from the same executed source, so it too comes from the package
 under test.
 
-Left out, with the module they wait for (the port does not have it yet):
-
-- ``test_durable_storage.py::test_queue_commit_offset_is_crash_atomic``,
-  ``::test_torn_queue_offset_states_are_pinned``,
-  ``::test_queue_record_crc_detected_and_scrubbed``: the partitioned
-  ordering queue (``service.partitioning``).
+No case of these modules is left out.
 """
 import ast
 import functools
@@ -38,14 +33,7 @@ MIRRORED = (
     "test_op_lifecycle",
     "test_durable_storage",
 )
-LEFT_OUT = {
-    "test_durable_storage": {
-        "test_queue_commit_offset_is_crash_atomic": "service.partitioning",
-        "test_torn_queue_offset_states_are_pinned": "service.partitioning",
-        "test_queue_record_crc_detected_and_scrubbed":
-            "service.partitioning",
-    },
-}
+LEFT_OUT: dict = {}
 
 
 def mirror_cases(mirrored, left_out, by_hand=()) -> list:
