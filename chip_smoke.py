@@ -64,8 +64,13 @@ re-attached and dropping the replayed duplicates; 64 documents through
 a ``BrokerServer`` over TCP) and through the replicated sequencer
 (``ReplicatedSequencerGroup``, quorum 2 of 3, the leader killed and a
 follower promoted mid-run, the sidecar re-attached and held against a
-shadow fed the new leader's logs), and times the kernel beside its
-plain version.
+shadow fed the new leader's logs), replays bench config5 at its full
+width through the array lane (16384 documents x 4 clients, one native
+``MultiDocSequencer.ticket_boxcar`` call and one kernel dispatch per
+round; the C++ host tier and scalar replayer beside it), runs bench
+config11-13's chaos storms and the reference's three 20-seed chaos
+sweeps through the port's chaos harness with ``GpuMergeSidecar`` on
+the card, and times the kernel beside its plain version.
 
 The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
@@ -122,6 +127,18 @@ produce, pump and sidecar, B1 launches, the device trace, the resume's
 redelivered records and dropped duplicates, the checks); the
 "replicated:" line the failover (its phases, edits/s before and after,
 quorum waits, the host split with the quorum barrier, the checks).
+The "config5" line (with the card's name and power limit) holds the
+pipeline's ops/s (best of two passes), the synced pass's round p50 /
+p99 and host ms per round (ticket, scatters, upload, dispatch), B1's
+time and live bound per round, the device's idle share, the chip
+machine's CPU on the C++ host tier and scalar replayer, and the checks
+(no overflow, every document == its tile's first document on the
+device, checksums == the host tier, text == the oracle, B1 == plain on
+the first round's window). The "chaos" line (with the card) holds each
+storm (goodput, recovery, failover or netsplit times, faults per site,
+its runs equal on the card and on the CPU), each sweep (every seed ==
+the fault-free oracle, tiers, faults per site) and each leg's B1
+launches, wall and fsync share.
 The times lines cover the
 window rungs 16 / 32 / 64 at the main shape and the capacities 4096 and
 8192, with the NOOP share and the bound of each timed batch. Every phase
@@ -3069,6 +3086,9 @@ def phase_service(seed: int) -> dict:
 # ingress: the networked front door, live over TCP
 
 INGRESS_CONNECTIONS = 8  # TCP connections per writer group
+# rounds of the TCP session: a depth cut of the service cell's 4, made to
+# fit the config5 and chaos phases (PERF.md section 4)
+INGRESS_ROUNDS = 2
 INGRESS_COLUMNAR_DOCS = 64  # documents of the raw wire-1.3 columnar leg
 INGRESS_COLUMNAR_OPS = 8  # ops per columnar batch, one batch per round
 INGRESS_QOS_OPS = 100_000.0  # default_limits' per-connection op rate
@@ -3290,8 +3310,9 @@ def phase_ingress(seed: int) -> dict:
     ``INGRESS_CONNECTIONS`` multiplexed TCP connections with a signed
     token per document; ``GpuMergeSidecar`` subscribed to every
     document's ("d", "s") channel, applied on the loop thread once every
-    writer has its acks; 4 rounds of 8 edits per writer, a summarize
-    through the chunked upload plane after round 2, late joiners
+    writer has its acks; ``INGRESS_ROUNDS`` rounds of 8 edits per
+    writer, a summarize through the chunked upload plane after round 2,
+    late joiners
     through the snapshot cache; a raw columnar leg on 64 more
     documents; then the CLI leg. Every document held to both writers,
     to a scalar replay of its op log and (every 8th) to a late joiner;
@@ -3438,7 +3459,7 @@ def phase_ingress(seed: int) -> dict:
             sidecar.sync()
             torch.cuda.synchronize()
 
-        first_profiled = SERVICE_ROUNDS - SERVICE_PROFILED_ROUNDS + 1
+        first_profiled = INGRESS_ROUNDS - SERVICE_PROFILED_ROUNDS + 1
         prof = torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA])
         frames0 = _ask(port, {"type": "metrics"})["metrics"]
@@ -3450,7 +3471,7 @@ def phase_ingress(seed: int) -> dict:
         cpu0 = _thread_cpu_s()
         t1 = time.perf_counter()
         edits, wait_s, logged, col_batches = 0, 0.0, {}, 0
-        for rnd in range(1, SERVICE_ROUNDS + 1):
+        for rnd in range(1, INGRESS_ROUNDS + 1):
             if rnd == first_profiled:
                 torch.cuda.synchronize()
                 t_start = time.perf_counter()
@@ -3645,7 +3666,7 @@ def phase_ingress(seed: int) -> dict:
         f"multiplexed connections, a signed token per document; "
         f"GpuMergeSidecar scan {SERVICE_DOCS} x {SERVICE_CAPACITY}, max "
         f"{SERVICE_MAX_CAPACITY}, applied on the loop thread), "
-        f"{SERVICE_ROUNDS} rounds x {SERVICE_EDITS} edits per writer: "
+        f"{INGRESS_ROUNDS} rounds x {SERVICE_EDITS} edits per writer: "
         f"{edits} edits, {messages} sequenced messages, plus "
         f"{col_batches} columnar batches ({col_ops} ops) on "
         f"{INGRESS_COLUMNAR_DOCS} documents; rounds wall {rounds_s:.3f} s, "
@@ -3844,8 +3865,9 @@ def phase_serve() -> dict:
 # ----------------------------------------------------------------------
 # dds: the DDS catalogue's live sessions into the matrix and tree planes
 
-DDS_MATRIX_MATRICES = 48  # of config3 full's 64: a depth cut that keeps
-# the phase near 180 s on the chip's host (PERF.md section 4)
+DDS_MATRIX_MATRICES = 16  # of config3 full's 64: a depth cut (48 until the
+# config5 and chaos phases came) that keeps the script's time (PERF.md
+# section 4)
 DDS_MATRIX_SEED = 1337  # config3's generator seed
 DDS_MATRIX_ROUND_OPS = 64  # ops each writer authors before the flushes
 DDS_TREE_DOCS, DDS_TREE_WRITERS, DDS_TREE_ROUNDS = 32, 3, 24  # config17
@@ -4793,6 +4815,12 @@ PART_BROKER_DOCS = 64
 # document SERVICE_DOCS // 2 edits); every message there fsyncs several
 # files (see the fsync line)
 PART_DURABLE_ROUNDS = REPL_ROUNDS = 1
+# depth cuts made to fit the config5 and chaos phases (PERF.md section 4):
+# the in-memory and broker legs run 2 of the cell's 4 rounds, the durable
+# and replicated legs 4 of its 8 edits per writer (each of their messages
+# costs several fsyncs and renames)
+PART_ROUNDS = 2
+DURABLE_EDITS = 4
 REPL_FOLLOWERS = 2  # leader + 2 followers, quorum 2 of 3
 ROUND_STEP_S = 0.05  # the injected clocks move this much per round (< lease TTL)
 FSYNC_PROBES = 400
@@ -4858,8 +4886,9 @@ def _dup_drops(api) -> float:
 
 def ordering_rounds(writers: dict, docs: list, rounds: int, rng, times,
                     sidecar, clock, pump=None, event=None, event_at=None,
-                    after_doc=None, on_start=None) -> dict:
-    """The service cell's rounds: every writer makes ``SERVICE_EDITS``
+                    after_doc=None, on_start=None,
+                    edits_per_writer: int = SERVICE_EDITS) -> dict:
+    """The service cell's rounds: every writer makes ``edits_per_writer``
     edits and flushes, document by document, then ``pump()`` and the
     sidecar's ``apply()``; the clock moves one step per round.
     ``on_start()`` runs once, before the first round; ``event()`` runs
@@ -4884,7 +4913,7 @@ def ordering_rounds(writers: dict, docs: list, rounds: int, rng, times,
             with times.part("client"):
                 for c in writers[doc]:
                     s = _string(c)
-                    for _ in range(SERVICE_EDITS):
+                    for _ in range(edits_per_writer):
                         _service_edit(rng, s)
                         edits[part] += 1
                 for c in writers[doc]:
@@ -4902,7 +4931,8 @@ def ordering_rounds(writers: dict, docs: list, rounds: int, rng, times,
 
 def partitioned_leg(api, server, docs: list, rounds: int, seed: int,
                     times, sidecar, clock, resume_at=None, resume=(),
-                    on_start=None) -> dict:
+                    on_start=None,
+                    edits_per_writer: int = SERVICE_EDITS) -> dict:
     """Two writers per document on a ``PartitionedServer`` (every submit
     produces a record into the ordering queue and pumps the document's
     partition), ``sidecar`` (or None) subscribed to every document's
@@ -4959,14 +4989,16 @@ def partitioned_leg(api, server, docs: list, rounds: int, seed: int,
     rec.update(ordering_rounds(writers, docs, rounds, rng, times, sidecar,
                                clock, pump=svc.pump,
                                event=resume_partitions if resume else None,
-                               event_at=resume_at, on_start=on_start))
+                               event_at=resume_at, on_start=on_start,
+                               edits_per_writer=edits_per_writer))
     rec["writers"] = writers
     return rec
 
 
 def replicated_leg(api, group, docs: list, rounds: int, seed: int, times,
                    sidecar, clock, timeline, fail_at: tuple,
-                   on_start=None) -> dict:
+                   on_start=None,
+                   edits_per_writer: int = SERVICE_EDITS) -> dict:
     """Two writers per document through ``LocalDocumentServiceFactory(
     group.server)``, ``sidecar`` subscribed to every document's ("d",
     "s"); ``ordering_rounds``. At ``fail_at`` (round, document index)
@@ -5028,7 +5060,8 @@ def replicated_leg(api, group, docs: list, rounds: int, seed: int, times,
 
     rec.update(ordering_rounds(writers, docs, rounds, rng, times, sidecar,
                                clock, event=fail_over, event_at=fail_at,
-                               after_doc=after_doc, on_start=on_start))
+                               after_doc=after_doc, on_start=on_start,
+                               edits_per_writer=edits_per_writer))
     rec["writers"] = writers
     return rec
 
@@ -5164,7 +5197,7 @@ def _broker_leg(api, seed: int) -> dict:
         sidecar.ingest = times.wrap("sidecar ingest", sidecar.ingest)
         launches = cuda_merge.LAUNCHES
         t0 = time.perf_counter()
-        rec = partitioned_leg(api, server, docs, SERVICE_ROUNDS, seed + 7,
+        rec = partitioned_leg(api, server, docs, PART_ROUNDS, seed + 7,
                               times, sidecar, clock)
         sidecar.sync()
         torch.cuda.synchronize()
@@ -5183,7 +5216,7 @@ def _broker_leg(api, seed: int) -> dict:
     twin = api.PartitionedServer(n_partitions=PART_PARTITIONS,
                                  queue=api.InMemoryOrderingQueue(
                                      PART_PARTITIONS), clock=twin_clock)
-    partitioned_leg(api, twin, docs, SERVICE_ROUNDS, seed + 7, _SelfTimes(),
+    partitioned_leg(api, twin, docs, PART_ROUNDS, seed + 7, _SelfTimes(),
                     None, twin_clock)
     for d in docs:
         if streams[d] != [_canon_json(api.message_to_json(m))
@@ -5205,7 +5238,8 @@ def phase_partitioned(seed: int) -> dict:
     service: ``PartitionedServer(n_partitions=4)``, every submit a record
     of the ordering queue that the document's partition consumer
     sequences, ``GpuMergeSidecar`` subscribed to every document. Three
-    sub-legs: the in-memory queue (1024 documents, the cell's 4 rounds);
+    sub-legs: the in-memory queue (1024 documents, ``PART_ROUNDS`` of the
+    cell's 4 rounds);
     the durable queue (``FileOrderingQueue`` with fsync, a
     ``durable_dir`` op log and checkpoint per document; partitions 0 and
     1 paused and resumed from their committed offsets at the midpoint,
@@ -5228,7 +5262,8 @@ def phase_partitioned(seed: int) -> dict:
         f"{probe['mean_ms']:.4f} ms per fsync; the durable and replicated "
         f"legs fsync every queue record, op-log append, checkpoint and "
         f"follower append, and run {PART_DURABLE_ROUNDS} / {REPL_ROUNDS} of "
-        f"the cell's {SERVICE_ROUNDS} rounds, the resume / failover at its "
+        f"the cell's {SERVICE_ROUNDS} rounds with {DURABLE_EDITS} of its "
+        f"{SERVICE_EDITS} edits per writer, the resume / failover at its "
         f"midpoint (depth cut); open-file limit "
         f"{soft} -> {nofile}")
     for leg in ("in-memory", "durable"):
@@ -5240,12 +5275,14 @@ def phase_partitioned(seed: int) -> dict:
             if leg == "in-memory":
                 queue, durable_dir, rounds = (
                     api.InMemoryOrderingQueue(PART_PARTITIONS), None,
-                    SERVICE_ROUNDS)
+                    PART_ROUNDS)
+                edits_per_writer = SERVICE_EDITS
             else:
                 durable_dir = root
                 queue = api.FileOrderingQueue(
                     os.path.join(root, "queue"), PART_PARTITIONS, fsync=True)
                 rounds = PART_DURABLE_ROUNDS
+                edits_per_writer = DURABLE_EDITS
             server = api.PartitionedServer(n_partitions=PART_PARTITIONS,
                                            durable_dir=durable_dir,
                                            queue=queue, clock=clock)
@@ -5269,7 +5306,7 @@ def phase_partitioned(seed: int) -> dict:
                 api, server, docs, rounds, seed, times, sidecar, clock,
                 resume_at=midpoint,
                 resume=PART_RESUMED if leg == "durable" else (),
-                on_start=start_rounds)
+                on_start=start_rounds, edits_per_writer=edits_per_writer)
             with times.part("sidecar apply"):
                 sidecar.sync()
             torch.cuda.synchronize()
@@ -5323,16 +5360,17 @@ def phase_partitioned(seed: int) -> dict:
                          f"the round ({rec['resume_s']:.3f} s); queue "
                          f"records {counts}, committed {committed}; depth "
                          f"cut: {rounds} of the cell's {SERVICE_ROUNDS} "
-                         f"rounds (an fsync per queue record and op-log "
-                         f"append, a write-temp + fsync + rename per "
-                         f"checkpoint and committed offset)")
+                         f"rounds, {edits_per_writer} of its {SERVICE_EDITS} "
+                         f"edits per writer (an fsync per queue record and "
+                         f"op-log append, a write-temp + fsync + rename "
+                         f"per checkpoint and committed offset)")
             log(f"partitioned {leg}: {SERVICE_DOCS} docs x "
                 f"{len(SERVICE_WRITERS)} writers, PartitionedServer("
                 f"{PART_PARTITIONS} partitions, "
                 f"{type(queue).__name__}"
                 f"{', fsync' if leg == 'durable' else ''}) -> "
                 f"GpuMergeSidecar scan {SERVICE_DOCS} x {SERVICE_CAPACITY}; "
-                f"{rounds} round(s) x {SERVICE_EDITS} edits per writer: "
+                f"{rounds} round(s) x {edits_per_writer} edits per writer: "
                 f"{rec['edits']} edits, {messages} sequenced messages; "
                 f"rounds wall {wall_s:.3f} s"
                 + (f" ({rec['resume_s']:.3f} s of it the resume)"
@@ -5351,7 +5389,8 @@ def phase_partitioned(seed: int) -> dict:
     brk = _broker_leg(api, seed)
     log(f"partitioned broker: {PART_BROKER_DOCS} docs x "
         f"{len(SERVICE_WRITERS)} writers through an in-process BrokerServer "
-        f"and RemoteOrderingQueue over TCP, {SERVICE_ROUNDS} rounds: "
+        f"and RemoteOrderingQueue over TCP, {PART_ROUNDS} of the cell's "
+        f"{SERVICE_ROUNDS} rounds: "
         f"{brk['edits']} edits, {brk['messages']} sequenced messages, "
         f"{brk['edits'] / brk['wall_s']:.1f} edits/s; committed offsets "
         f"{brk['committed']}; B1 launches {brk['launches']}; checks: every "
@@ -5404,7 +5443,8 @@ def phase_replicated(seed: int) -> dict:
         fail_at = (1, len(docs) // 2)
         rec = replicated_leg(api, group, docs, REPL_ROUNDS, seed, times,
                              sidecar, clock, timeline, fail_at,
-                             on_start=start_rounds)
+                             on_start=start_rounds,
+                             edits_per_writer=DURABLE_EDITS)
         with times.part("sidecar apply"):
             sidecar.sync()
         torch.cuda.synchronize()
@@ -5445,9 +5485,10 @@ def phase_replicated(seed: int) -> dict:
             f"followers, quorum {quorum} of {REPL_FOLLOWERS + 1}, every "
             f"append fsynced on each node, step clock) -> GpuMergeSidecar "
             f"scan {SERVICE_DOCS} x {SERVICE_CAPACITY}; {REPL_ROUNDS} round(s) "
-            f"x {SERVICE_EDITS} edits per writer (depth cut of the cell's "
-            f"{SERVICE_ROUNDS}): {rec['edits']} edits, {messages} sequenced "
-            f"messages; {rec['killed']} killed at the midpoint, before "
+            f"x {DURABLE_EDITS} edits per writer (depth cut of the cell's "
+            f"{SERVICE_ROUNDS} x {SERVICE_EDITS}): {rec['edits']} edits, "
+            f"{messages} sequenced messages; {rec['killed']} killed at the "
+            f"midpoint, before "
             f"document {fail_at[1]} of round {fail_at[0]} edits, "
             f"lease lapsed, {group.leader_id} promoted at epoch "
             f"{group.epoch} (failover {rec['failover_s']:.3f} s host with "
@@ -5469,6 +5510,680 @@ def phase_replicated(seed: int) -> dict:
             f"({time.perf_counter() - t_check:.3f} s)")
     return {"launches": launches, "max_abs_err": err, "pre": pre,
             "post": post}
+
+
+# ----------------------------------------------------------------------
+# config5: bench's full-service replay, the array lane, at full width
+
+# bench.stage_config5's scales (bench.py:1040-1044): documents, distinct
+# streams, steps, clients, capacity, messages per round
+CONFIG5_SCALES = {"full": (16384, 16, 220, 4, 1024, 64),
+                  "smoke": (64, 4, 40, 2, 256, 20)}
+CONFIG5_SEED0 = 777  # bench's corpus seed for config5
+CONFIG5_TIMED_RUNS = 2  # timed pipeline passes after the warm-up
+CONFIG5_ORACLE_DOCS = 4  # documents held to the MergeTreeClient oracle
+
+
+def config5_rounds(raw: list, encoded: list, docs: int,
+                   apply_every: int) -> list:
+    """bench's columnar prep of config5 (bench.py:1064-1152): document
+    ``d`` replays distinct stream ``d % len(raw)``; round ``r`` holds
+    each document's operation messages ``[r * apply_every, (r + 1) *
+    apply_every)`` as the boxcar's ticket inputs (``doc_start``,
+    ``cids`` parsed from ``client-N``, ``csns``, ``refs``, the op rows
+    per message ``counts``) and their op rows as ``[docs, win]`` content
+    windows (NOOP-padded), ``flat_dst`` the rows' flat slots. Every
+    round pads to one window width ``win``, as bench does."""
+    from fluidframework_tpu_torch.ops.host_bridge import OP_FIELDS
+    from fluidframework_tpu_torch.ops.segment_table import KIND_NOOP
+    from fluidframework_tpu_torch.protocol.messages import MessageType
+
+    prep = []
+    for enc, stream in zip(encoded, raw):
+        msgs = [m for m in stream if m.type == MessageType.OPERATION]
+        rows = [op for op in enc.ops if op["kind"] != KIND_NOOP]
+        by_seq = collections.Counter(op["seq"] for op in rows)
+        counts = np.array([by_seq[m.sequence_number] for m in msgs],
+                          np.int64)
+        assert counts.sum() == len(rows)
+        prep.append({
+            "counts": counts,
+            "cids": np.array([int(m.client_id.rsplit("-", 1)[1])
+                              for m in msgs], np.int64),
+            "csns": np.array([m.client_sequence_number for m in msgs],
+                             np.int64),
+            "refs": np.array([m.reference_sequence_number for m in msgs],
+                             np.int64),
+            "rows": np.array([[op[f] for f in OP_FIELDS] for op in rows],
+                             np.int32).reshape(len(rows), len(OP_FIELDS)),
+            "row0": np.concatenate([[0], np.cumsum(counts)]),
+        })
+    tile = np.arange(docs) % len(prep)
+    n_rounds = -(-max(len(p["counts"]) for p in prep) // apply_every)
+    spans = [[(min(r * apply_every, len(p["counts"])),
+               min((r + 1) * apply_every, len(p["counts"]))) for p in prep]
+             for r in range(n_rounds)]
+    win = max(1, max(int(p["row0"][m1] - p["row0"][m0])
+                     for sp in spans for p, (m0, m1) in zip(prep, sp)))
+    rounds = []
+    for sp in spans:
+        msgs = np.array([m1 - m0 for m0, m1 in sp])[tile]
+        if not msgs.sum():
+            break
+        base = np.zeros((len(prep), win, len(OP_FIELDS)), np.int32)
+        base[..., OP_FIELDS.index("kind")] = KIND_NOOP
+        n_rows = np.zeros(len(prep), np.int64)
+        for b, (p, (m0, m1)) in enumerate(zip(prep, sp)):
+            r0, r1 = p["row0"][m0], p["row0"][m1]
+            base[b, :r1 - r0] = p["rows"][r0:r1]
+            n_rows[b] = r1 - r0
+        content = base[tile]
+        rows_of = n_rows[tile]
+        doc_of_row = np.repeat(np.arange(docs), rows_of)
+        starts = np.concatenate([[0], np.cumsum(rows_of)[:-1]])
+        row_in_doc = np.arange(len(doc_of_row)) - np.repeat(starts, rows_of)
+
+        def cat(key):
+            parts = [p[key][m0:m1] for p, (m0, m1) in zip(prep, sp)]
+            return np.concatenate([parts[b] for b in tile])
+
+        rounds.append({
+            "doc_start": np.concatenate([[0], np.cumsum(msgs)]),
+            "cids": cat("cids"), "csns": cat("csns"), "refs": cat("refs"),
+            "counts": cat("counts"),
+            "content": {f: np.ascontiguousarray(content[..., j])
+                        for j, f in enumerate(OP_FIELDS)},
+            "flat_dst": doc_of_row * win + row_in_doc,
+            "doc_of_row": doc_of_row.astype(np.int32),
+            "win": win,
+        })
+    return rounds
+
+
+def _pct(ascending: list, q: float) -> float:
+    """Percentile by rank on an ascending sample (bench's ``_pct``)."""
+    return ascending[min(len(ascending) - 1, int(len(ascending) * q))]
+
+
+def config5_sequencer(multi_doc_sequencer, docs: int, clients: int):
+    """A ``MultiDocSequencer`` (either package's class) of ``docs``
+    documents, clients 0 .. ``clients - 1`` joined to each (bench's
+    ``make_seqs``)."""
+    seqs = multi_doc_sequencer(docs)
+    for d in range(docs):
+        for c in range(clients):
+            seqs.join(d, c)
+    return seqs
+
+
+def run_config5(seqs, table, rounds: list, upload, apply, parts=None,
+                tickets=None, sync=None):
+    """One pass of the array lane (bench's ``run_pipeline``): per round
+    one ``ticket_boxcar`` call over every document, ``np.repeat`` and
+    two scatters stamp ``seq`` / ``min_seq`` on the round's op rows,
+    ``upload`` puts the window on the table's device and ``apply``
+    dispatches it; ``sync(table)`` after each round, if given. Host
+    seconds per part go into ``parts`` and each round's (seq, msn,
+    status) into ``tickets``. Returns (table, real ops, round walls)."""
+    total, walls = 0, []
+    for rd in rounds:
+        t0 = time.perf_counter()
+        seq, msn, status = seqs.ticket_boxcar(
+            rd["doc_start"], rd["cids"], rd["csns"], rd["refs"])
+        t1 = time.perf_counter()
+        if tickets is not None:
+            tickets.append((seq, msn, status))
+        if status.any():
+            raise AssertionError(f"config5: {int((status != 0).sum())} "
+                                 f"tickets refused")
+        arrays = dict(rd["content"])
+        for f, v in (("seq", seq), ("min_seq", msn)):
+            stamped = arrays[f].copy()
+            stamped.reshape(-1)[rd["flat_dst"]] = np.repeat(
+                v, rd["counts"]).astype(np.int32)
+            arrays[f] = stamped
+        t2 = time.perf_counter()
+        batch = upload(arrays)
+        t3 = time.perf_counter()
+        table = apply(table, batch)
+        if sync is not None:
+            sync(table)
+        t4 = time.perf_counter()
+        total += len(rd["flat_dst"])
+        walls.append(t4 - t0)
+        if parts is not None:
+            for k, dt in (("ticket", t1 - t0), ("scatter", t2 - t1),
+                          ("upload", t3 - t2), ("dispatch", t4 - t3)):
+                parts[k] = parts.get(k, 0.0) + dt
+    return table, total, walls
+
+
+def run_config5_host(seqs, session, rounds: list) -> tuple:
+    """bench's CPU route (bench.py:1172-1225): the same tickets, the
+    rows stamped and replayed by the C++ host tier (``MergeHostSession``)
+    in per-document sequenced order. Returns (real ops, seconds)."""
+    from fluidframework_tpu_torch.ops.host_bridge import OP_FIELDS
+
+    f_seq, f_msn = OP_FIELDS.index("seq"), OP_FIELDS.index("min_seq")
+    flat = []
+    for rd in rounds:
+        doc, row = np.divmod(rd["flat_dst"], rd["win"])
+        flat.append(np.stack([rd["content"][f][doc, row]
+                              for f in OP_FIELDS], axis=1))
+    total, t0 = 0, time.perf_counter()
+    for rd, rows in zip(rounds, flat):
+        seq, msn, status = seqs.ticket_boxcar(
+            rd["doc_start"], rd["cids"], rd["csns"], rd["refs"])
+        if status.any():
+            raise AssertionError("config5: host tier tickets refused")
+        rows[:, f_seq] = np.repeat(seq, rd["counts"])
+        rows[:, f_msn] = np.repeat(msn, rd["counts"])
+        session.apply(rows, rd["doc_of_row"])
+        total += len(rows)
+    return total, time.perf_counter() - t0
+
+
+def _cpp_replay_rate(encoded: list, min_seconds: float = 1.0) -> float:
+    """ops/s of the C++ scalar replayer over the distinct streams, reps
+    calibrated to fill ``min_seconds`` (bench's ``_cpp_baseline``,
+    bench.py:211-235)."""
+    from fluidframework_tpu_torch.native.replay_baseline import (
+        encode_ops_array, replay,
+    )
+
+    arrays = [encode_ops_array(e) for e in encoded]
+    probe = replay(arrays[0], reps=1)
+    if probe is None:
+        raise AssertionError("config5: the C++ replayer did not load")
+    reps = max(1, int(min_seconds / (max(probe[2], 1e-6) * len(arrays))))
+    ops = secs = 0.0
+    for arr in arrays:
+        _, _, dt = replay(arr, reps=reps)
+        ops += arr.shape[0] * reps
+        secs += dt
+    return ops / secs
+
+
+def _check_tiles(table, base: int) -> None:
+    """Every document's live slots, on every field, equal those of its
+    tile's first document ``d % base``, compared on the device."""
+    docs, cap = table.docs, table.capacity
+    first = torch.arange(docs, device=table.count.device) % base
+    for f in ("count", "min_seq", "overflow"):
+        x = getattr(table, f)
+        if not torch.equal(x, x[first]):
+            raise AssertionError(f"config5: {f} differs from the tile's "
+                                 "first document")
+    live = (torch.arange(cap, device=table.count.device)[None, :]
+            < table.count[:, None])
+    for f in table._fields[:-3]:
+        x = getattr(table, f)
+        mask = live if x.dim() == 2 else live[..., None]
+        if not torch.equal(torch.where(mask, x, 0),
+                           torch.where(mask, x[first], 0)):
+            raise AssertionError(f"config5: live {f} differs from the "
+                                 "tile's first document")
+
+
+def phase_config5(card: str) -> dict:
+    """bench config5 at ``full`` (``bench.stage_config5``): 16384
+    documents x 4 clients replay bench's corpus through the array lane,
+    one native ``MultiDocSequencer.ticket_boxcar`` call and one B1
+    dispatch per round of 64 messages per document."""
+    from fluidframework_tpu_torch import native
+    from fluidframework_tpu_torch.convert import batch_from_numpy
+    from fluidframework_tpu_torch.models.mergetree import MergeTreeClient
+    from fluidframework_tpu_torch.native.replay_baseline import (
+        MergeHostSession, table_checksum,
+    )
+    from fluidframework_tpu_torch.native.sequencer_core import (
+        MultiDocSequencer,
+    )
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.ops.host_bridge import (
+        encode_stream, extract_text, fetch,
+    )
+    from fluidframework_tpu_torch.ops.merge_kernel import apply_window
+    from fluidframework_tpu_torch.ops.segment_table import make_table
+    from fluidframework_tpu_torch.ops.window_cost import window_cost
+    from fluidframework_tpu_torch.protocol.messages import MessageType
+
+    docs, base, steps, clients, cap, every = CONFIG5_SCALES["full"]
+    t0 = time.perf_counter()
+    for lib, err in ((native.load_native_sequencer(),
+                      native.native_build_error),
+                     (native.load_merge_replay(),
+                      native.merge_replay_error)):
+        if lib is None:
+            raise AssertionError(f"config5: a native library did not "
+                                 f"build or load: {err()}")
+    raw = bench_streams(base, steps, clients, CONFIG5_SEED0)
+    encoded = [encode_stream(s) for s in raw]
+    rounds = config5_rounds(raw, encoded, docs, every)
+    win = rounds[0]["win"]
+    prep_s = time.perf_counter() - t0
+
+    def upload(arrays):
+        return batch_from_numpy(arrays, "cuda")
+
+    def sync(table):
+        torch.cuda.synchronize()
+
+    # warm-up pass: keep each round's input table and batch
+    held = []
+
+    def hold(table, batch):
+        held.append((table, batch))
+        return apply_window(table, batch)
+
+    run_config5(config5_sequencer(MultiDocSequencer, docs, clients),
+                make_table(docs, cap, "cuda"), rounds, upload, hold)
+    _, err = _check_window(*held[0], "config5's first round")
+    b1_ms, bounds = [], []
+    for table_in, batch in held:
+        b1_ms.append(statistics.median(
+            _time_ms(lambda: apply_window(table_in, batch), 5, 3)))
+        bounds.append(window_cost(table_in, batch).bound_ms(
+            HBM_BYTES_PER_S, INT32_OPS_PER_S))
+    kernel_check_s = time.perf_counter() - t0 - prep_s
+    held.clear()
+    runs = []
+    for _ in range(CONFIG5_TIMED_RUNS):
+        seqs = config5_sequencer(MultiDocSequencer, docs, clients)
+        table = make_table(docs, cap, "cuda")
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        table, total, _ = run_config5(seqs, table, rounds, upload,
+                                      apply_window)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t_run)
+        del table
+    # the synced pass: round latency, the host split, the device's busy
+    # time from a trace and, per round, from CUDA events recorded before
+    # the upload and after the dispatch
+    seqs = config5_sequencer(MultiDocSequencer, docs, clients)
+    table = make_table(docs, cap, "cuda")
+    parts, marks = {}, []
+
+    def upload_marked(arrays):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return upload(arrays)
+
+    def apply_marked(table, batch):
+        out = apply_window(table, batch)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return out
+
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    cuda_merge.LAUNCHES = 0
+    prof.start()
+    t_run = time.perf_counter()
+    table, total, lat = run_config5(seqs, table, rounds, upload_marked,
+                                    apply_marked, parts=parts, sync=sync)
+    synced_s = time.perf_counter() - t_run
+    prof.stop()
+    launches = cuda_merge.LAUNCHES
+    busy = _device_busy_ms(prof)
+    marked_ms = sum(a.elapsed_time(b) for a, b in zip(marks[::2], marks[1::2]))
+    if launches != len(rounds):
+        raise AssertionError(f"config5: B1 launches {launches} for "
+                             f"{len(rounds)} rounds")
+    t_check = time.perf_counter()
+    if int(table.overflow.sum()):
+        raise AssertionError(f"config5: {int(table.overflow.sum())} "
+                             "documents overflowed")
+    _check_tiles(table, base)
+    head = fetch(type(table)(*(x[:base] for x in table)))
+    for d in range(CONFIG5_ORACLE_DOCS):
+        obs = MergeTreeClient("obs")
+        obs.start_collaboration("obs")
+        for msg in raw[d]:
+            if msg.type == MessageType.OPERATION:
+                obs.apply_msg(msg)
+        if extract_text(head, encoded[d], d) != obs.get_text():
+            raise AssertionError(f"config5: document {d} differs from "
+                                 "the MergeTreeClient oracle")
+    session = MergeHostSession(docs)
+    host_ops, host_s = run_config5_host(
+        config5_sequencer(MultiDocSequencer, docs, clients), session, rounds)
+    for d in range(base):
+        want, live = session.stats(d)
+        if table_checksum(head, d) != want:
+            raise AssertionError(f"config5: document {d}'s checksum "
+                                 "differs from the C++ host tier's")
+    session.close()
+    cpp_rate = _cpp_replay_rate(encoded)
+    check_s = time.perf_counter() - t_check
+    lat_ms = sorted(x * 1e3 for x in lat)
+    ops_s = total / min(runs)
+    host = " / ".join(f"{k} {1e3 * parts[k] / len(rounds):.3f}"
+                      for k in ("ticket", "scatter", "upload", "dispatch"))
+    log(f"config5 ({card}): {docs} docs x {clients} clients ({docs * clients} "
+        f"sessions), bench's corpus _build_streams({base}, {steps}, "
+        f"{clients}, seed0={CONFIG5_SEED0}) tiled, {len(rounds)} rounds of "
+        f"{every} messages per document, one window width W = {win}, "
+        f"capacity {cap}; native MultiDocSequencer.ticket_boxcar -> "
+        f"np.repeat + 2 scatters -> upload -> B1 (scan) on cuda; "
+        f"{total} real ops per pass; pipeline {ops_s:.1f} ops/s (best of "
+        f"{CONFIG5_TIMED_RUNS} passes after a warm-up: "
+        f"{[round(s, 4) for s in runs]} s); synced pass {synced_s:.3f} s, "
+        f"round p50 {_pct(lat_ms, 0.5):.3f} / p99 {_pct(lat_ms, 0.99):.3f} "
+        f"ms, host ms per round: {host}; B1 at {docs} x {cap} x {win}: "
+        f"{[round(m, 4) for m in b1_ms]} ms per round (CUDA events, "
+        f"medians of 5 x 3), live bound "
+        f"{[round(b, 4) for b, _ in bounds]} ms by "
+        f"{sorted({by for _, by in bounds})}, B1 at "
+        f"{sum(b for b, _ in bounds) / sum(b1_ms):.4f} of the bound over "
+        f"the rounds; B1 launches {launches}; "
+        + _busy_line(busy, synced_s)
+        + f"; CUDA events from each upload's start to its dispatch's end: "
+        f"{marked_ms:.3f} ms of the {synced_s * 1e3:.3f} ms pass, idle "
+        f"share {1 - marked_ms / (synced_s * 1e3):.6f}"
+        + f"; the chip machine's CPU: C++ host tier (MergeHostSession) "
+        f"{host_ops / host_s:.1f} ops/s ({host_ops} ops in "
+        f"{host_s:.3f} s, one pass with its tickets), C++ scalar "
+        f"replayer {cpp_rate:.1f} ops/s over the {base} distinct streams; "
+        f"checks: no overflow, every document's live slots == its "
+        f"tile's first document's (every field, on the device), the "
+        f"{base} distinct documents' checksums == the host tier's, "
+        f"documents 0-{CONFIG5_ORACLE_DOCS - 1} == the MergeTreeClient "
+        f"oracle, B1 == plain on the first round's {docs} x {cap} x "
+        f"{win} window (prep {prep_s:.3f} s, kernel checks and times "
+        f"{kernel_check_s:.3f} s, checks {check_s:.3f} s, phase "
+        f"{time.perf_counter() - t0:.3f} s)")
+    return {"launches": launches, "max_abs_err": err}
+
+
+# ----------------------------------------------------------------------
+# chaos: bench config11-13's storms and the chaos sweeps, GPU sidecar
+
+CHAOS_STEPS, CHAOS_STORM = 240, (80, 160)  # bench config11-13 at full
+CHAOS_SEEDS = 20  # the reference's sweeps (tests/test_chaos.py:47)
+CHAOS_CRASH_SEEDS = (0, 3)  # config11's convergence leg (bench.py:2115)
+CHAOS_KILL_SEEDS = (1, 2, 6)  # config12's, one per kill mode (:2220)
+CHAOS_SPLIT_SEEDS = (0, 1, 2, 3, 7)  # config13's, one per split mode (:2368)
+
+
+class _FileSyncTimes:
+    """Wall seconds and calls of ``os.fsync`` and ``os.replace`` (the
+    durable store's write-temp + fsync + rename) while installed."""
+
+    def __init__(self):
+        self.s = collections.Counter()
+        self.n = collections.Counter()
+        self._saved = {}
+
+    def __enter__(self):
+        import os
+
+        for name in ("fsync", "replace"):
+            inner = self._saved[name] = getattr(os, name)
+
+            def timed(*a, _inner=inner, _name=name, **k):
+                t = time.perf_counter()
+                try:
+                    return _inner(*a, **k)
+                finally:
+                    self.s[_name] += time.perf_counter() - t
+                    self.n[_name] += 1
+
+            setattr(os, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        for name, inner in self._saved.items():
+            setattr(os, name, inner)
+
+
+def _sites(fired) -> dict:
+    """Faults fired per site: from a storm's ``chaos_counts`` (metric
+    keys) or a sweep's ``fired`` list of (site, event, kind)."""
+    out = collections.Counter()
+    if isinstance(fired, dict):
+        for key, n in fired.items():
+            out[key.split('site="', 1)[1].split('"', 1)[0]] += n
+    else:
+        for site, _, _ in fired:
+            out[site] += 1
+    return dict(sorted(out.items()))
+
+
+def _chaos_leg(run, files) -> tuple:
+    """``run()`` with B1's launches counted and its wall and file-sync
+    seconds taken: (result, launches, wall s, fsync s, rename s)."""
+    from fluidframework_tpu_torch.ops import cuda_merge
+
+    s0, r0 = files.s["fsync"], files.s["replace"]
+    cuda_merge.LAUNCHES = 0
+    t = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return (out, cuda_merge.LAUNCHES, time.perf_counter() - t,
+            files.s["fsync"] - s0, files.s["replace"] - r0)
+
+
+def _storm_line(name: str, rep, launches: int, wall: float, fsync: float,
+                rename: float, cpu_s: float) -> str:
+    extra = ""
+    if rep.failover_time_s is not None:
+        extra += (f", failover_time_s {rep.failover_time_s} "
+                  f"{rep.failover_phases}, repl_lag_max "
+                  f"{rep.repl_lag_max}")
+    if rep.netsplit_window is not None:
+        extra += (f", netsplit {list(rep.netsplit_window)}: "
+                  f"unavailability_s {rep.unavailability_s}, "
+                  f"degraded_read_s {rep.degraded_read_s}, unavailable "
+                  f"nacks {rep.unavailable_nacks}")
+    return (f"{name} seed {rep.seed}: {rep.offered_ops} offered / "
+            f"{rep.acked_ops} acked ops (the alpha document; no sidecar "
+            f"tracks it), goodput_steady "
+            f"{rep.goodput_steady:.4f}, goodput_dip {rep.goodput_dip:.4f}, "
+            f"recovery_steps {rep.recovery_steps}{extra}; {rep.fired} "
+            f"faults, per site {_sites(rep.chaos_counts)}; B1 launches "
+            f"{launches}; wall {wall:.3f} s (x2 runs equal, and equal to "
+            f"the CPU sidecar's run, {cpu_s:.3f} s), fsync {fsync:.3f} s "
+            f"({fsync / wall:.4f} of the wall), rename {rename:.3f} s")
+
+
+def phase_chaos(card: str) -> dict:
+    """bench config11-13 at ``full`` (bench.py:2058-2420) through the
+    port's chaos harness with ``GpuMergeSidecar`` on the card: each
+    storm twice (equal ``deterministic_fields()``) and once with the
+    sidecar on the CPU (equal again), the fault-free oracles, and the
+    reference's three 20-seed convergence sweeps (crash-restart with
+    torn states, leader kills, netsplits), each seed equal to its
+    oracle; the configs' convergence legs are seeds of the sweeps."""
+    from fluidframework_tpu_torch.ops.window_cost import real_ops
+    from fluidframework_tpu_torch.service.gpu_sidecar import GpuMergeSidecar
+    from fluidframework_tpu_torch.testing import chaos
+
+    t0 = time.perf_counter()
+    total = 0
+    lines = []
+    # the oracles' first scan dispatch with real ops at each slab
+    # capacity (16, then 32 after the grow): inputs and output kept
+    held = {}
+    inner = GpuMergeSidecar._apply_program
+
+    def holding(self, table, program, *dead):
+        out = inner(self, table, program, *dead)
+        if "scan" in program and table.capacity not in held and bool(
+                real_ops(program["scan"].kind).any()):
+            held[table.capacity] = (table, program["scan"], type(out)(
+                *(t.clone() for t in out)))
+        return out
+
+    with _FileSyncTimes() as files:
+        # the fault-free oracles (plain and replicated plane)
+        GpuMergeSidecar._apply_program = holding
+        try:
+            (oracle, fo), n, wall, fs, rn = _chaos_leg(lambda: (
+                chaos.run_chaos(0, faults=False),
+                chaos.run_chaos_failover(0, faults=False)), files)
+        finally:
+            GpuMergeSidecar._apply_program = inner
+        total += n
+        err = 0
+        for cap, (table, batch, out) in sorted(held.items()):
+            want, e = _check_window(table, batch, f"the chaos sidecar's "
+                                    f"{table.docs} x {cap} dispatch")
+            err = max(err, e)
+            if not all(torch.equal(x, y) for x, y in zip(out, want)):
+                raise AssertionError(f"chaos: the sidecar's {cap}-slot "
+                                     "dispatch differs from plain")
+        if sorted(held) != [chaos.ChaosHarness.SIDECAR_CAPACITY,
+                            chaos.ChaosHarness.SIDECAR_MAX_CAPACITY]:
+            raise AssertionError(f"chaos: held dispatches at {sorted(held)}")
+        if not (oracle.converged and fo.converged) or \
+                oracle.sidecar_tier != "pool":
+            raise AssertionError(f"chaos: the oracles failed "
+                                 f"({oracle.failures} {fo.failures}, tier "
+                                 f"{oracle.sidecar_tier})")
+        want = (oracle.alpha_text, oracle.alpha_kv, oracle.beta_text)
+        if (fo.alpha_text, fo.alpha_kv, fo.beta_text) != want:
+            raise AssertionError("chaos: the replicated oracle differs "
+                                 "from the plain one")
+        lines.append(f"oracles: run_chaos(0, faults=False) and "
+                     f"run_chaos_failover(0, faults=False) equal, beta "
+                     f"document in the {oracle.sidecar_tier} tier; B1 "
+                     f"launches {n}; one B1 dispatch at each slab "
+                     f"({[(t.docs, t.capacity, b.kind.shape[-1]) for t, b, _ in held.values()]} "
+                     f"docs x slots x W) == plain; wall {wall:.3f} s, "
+                     f"fsync {fs:.3f} s")
+        mid = sum(CHAOS_STORM) // 2
+        quarter = (CHAOS_STORM[1] - CHAOS_STORM[0]) // 4
+        storms = (("config11", 11, {}),
+                  ("config12", 12, {"kill_leader_step": mid}),
+                  ("config13", 13, {"netsplit": (CHAOS_STORM[0] + quarter,
+                                                 CHAOS_STORM[1] - quarter)}))
+        for name, seed, kw in storms:
+            def storm(device="cuda", seed=seed, kw=kw):
+                return chaos.run_chaos_storm(
+                    seed=seed, steps=CHAOS_STEPS, storm=CHAOS_STORM,
+                    device=device, **kw)
+
+            rep, n, wall, fs, rn = _chaos_leg(storm, files)
+            again = storm()
+            t_cpu = time.perf_counter()
+            cpu = storm("cpu")
+            cpu_s = time.perf_counter() - t_cpu
+            total += n
+            if not rep.converged or rep.fired <= 0:
+                raise AssertionError(f"chaos: {name} storm: converged "
+                                     f"{rep.converged} {rep.failures}, "
+                                     f"faults {rep.fired}")
+            for what, other in (("a second run", again),
+                                ("the CPU sidecar's run", cpu)):
+                if (other.deterministic_fields() != rep.deterministic_fields()
+                        or other.chaos_counts != rep.chaos_counts):
+                    raise AssertionError(
+                        f"chaos: {name}'s storm differs from {what}: "
+                        f"{rep.deterministic_fields()} != "
+                        f"{other.deterministic_fields()}")
+            if "kill_leader_step" in kw:
+                phases = rep.failover_phases or {}
+                if rep.failovers < 1 or rep.failover_time_s is None or abs(
+                        sum(v for k, v in phases.items() if k != "total_s")
+                        - rep.failover_time_s) > 0.05 + 1e-9 \
+                        or not rep.fleet_metrics:
+                    raise AssertionError(f"chaos: config12's failover: "
+                                         f"{rep.failover_time_s} {phases}")
+            if "netsplit" in kw and not (
+                    rep.unavailability_s and rep.degraded_read_s is not None
+                    and rep.degraded_read_s >= rep.unavailability_s - 1e-9
+                    and rep.unavailable_nacks > 0 and rep.failovers == 0):
+                raise AssertionError(f"chaos: config13's netsplit: "
+                                     f"{rep.deterministic_fields()}")
+            lines.append(_storm_line(name, rep, n, wall, fs, rn, cpu_s))
+        # the reference's three sweeps, each seed against the oracle
+        sweeps = (("crash", chaos.run_chaos),
+                  ("kill", chaos.run_chaos_failover),
+                  ("netsplit", chaos.run_chaos_netsplit))
+        by_seed = {}
+        for kind, run in sweeps:
+            reps, n, wall, fs, rn = _chaos_leg(lambda run=run: [
+                run(seed) for seed in range(CHAOS_SEEDS)], files)
+            total += n
+            if n < CHAOS_SEEDS:
+                raise AssertionError(f"chaos: {kind} sweep: B1 launches {n}")
+            for rep in reps:
+                detail = f"{kind} seed {rep.seed}: {rep.failures}"
+                if not rep.converged or not rep.fired or (
+                        rep.alpha_text, rep.alpha_kv, rep.beta_text) != want:
+                    raise AssertionError(f"chaos: {detail} (converged "
+                                         f"{rep.converged}, oracle equal "
+                                         "False or no faults)")
+                if rep.tear is not None and not rep.tear_applied:
+                    raise AssertionError(f"chaos: {detail}: the planned "
+                                         f"tear {rep.tear} never applied")
+                plan = chaos.failover_plan(rep.seed, 40)
+                if kind == "kill" and plan[0] is not None and (
+                        rep.failovers < 1 or rep.kill_mode != plan[1]):
+                    raise AssertionError(f"chaos: {detail}: no failover")
+                if kind == "netsplit" and (
+                        rep.scrub_repairs < 1 or rep.netsplit_mode
+                        != chaos.netsplit_plan(rep.seed, 40)["mode"]):
+                    raise AssertionError(f"chaos: {detail}: scrub "
+                                         f"{rep.scrub_repairs}")
+                by_seed[kind, rep.seed] = rep
+            tiers = collections.Counter(r.sidecar_tier for r in reps)
+            fired = _sites([f for r in reps for f in r.fired])
+            lines.append(
+                f"{kind} sweep, seeds 0-{CHAOS_SEEDS - 1}: every seed == "
+                f"the oracle; sidecar tiers {dict(tiers)} ({tiers['pool']} "
+                f"seeds drove the beta document into the pool tier); "
+                f"crashes {sum(r.crashes for r in reps)}, torn states "
+                f"applied {sum(bool(r.tear_applied) for r in reps)}, "
+                f"failovers {sum(r.failovers for r in reps)}, fenced "
+                f"writes {sum(r.fenced_writes for r in reps)}, scrub "
+                f"repairs {sum(r.scrub_repairs for r in reps)}; faults "
+                f"{sum(fired.values())}, per site {fired}; B1 launches "
+                f"{n}; wall {wall:.3f} s, fsync {fs:.3f} s "
+                f"({fs / wall:.4f} of the wall), rename {rn:.3f} s")
+        # the configs' convergence legs, from the sweeps
+        crash = [by_seed["crash", s] for s in CHAOS_CRASH_SEEDS]
+        kill = {by_seed["kill", s].kill_mode: by_seed["kill", s]
+                for s in CHAOS_KILL_SEEDS}
+        split = {by_seed["netsplit", s].netsplit_mode:
+                 by_seed["netsplit", s] for s in CHAOS_SPLIT_SEEDS}
+        if not (any(r.crashes for r in crash)
+                and any(r.tear_applied for r in crash)):
+            raise AssertionError("chaos: config11's seeds 0 / 3 applied no "
+                                 "crash with a torn state")
+        if set(kill) != {"mid_batch", "under_lag", "deposed_race"} or \
+                kill["deposed_race"].fenced_writes <= 0:
+            raise AssertionError(f"chaos: config12's kill modes {set(kill)}")
+        minority = split.get("minority_leader")
+        if set(split) != set(chaos.SPLIT_MODES) or minority is None or \
+                minority.fenced_writes <= 0 or minority.rejoins < 1:
+            raise AssertionError(f"chaos: config13's split modes "
+                                 f"{set(split)}")
+    wall = time.perf_counter() - t0
+    harness = chaos.ChaosHarness
+    log(f"chaos ({card}): the port's chaos harness (testing/chaos.py) with "
+        f"GpuMergeSidecar on cuda (capacity {harness.SIDECAR_CAPACITY} -> "
+        f"{harness.SIDECAR_MAX_CAPACITY}, seq pool "
+        f"{harness.SIDECAR_POOL_CAPACITY} on "
+        f"make_seq_mesh([cuda])), durable dirs in the temp directory; "
+        f"storms at bench's full: {CHAOS_STEPS} steps, storm "
+        f"{CHAOS_STORM}; " + "; ".join(lines)
+        + f"; config11's convergence leg: seeds {CHAOS_CRASH_SEEDS} "
+        f"(crash with tear {[r.tear for r in crash]}, applied); "
+        f"config12's: seeds {CHAOS_KILL_SEEDS} = kill modes "
+        f"{sorted(kill)}; config13's: seeds {CHAOS_SPLIT_SEEDS} = split "
+        f"modes {sorted(split)}; config11's and config13's failsan "
+        f"fault-to-signal accounting waits for testing/failsan (ROADMAP "
+        f"A item 2); the file syncs: fsync {files.s['fsync']:.3f} s over "
+        f"{files.n['fsync']} calls, rename {files.s['replace']:.3f} s over "
+        f"{files.n['replace']}; B1 launches {total}; phase wall "
+        f"{wall:.3f} s ({files.s['fsync'] / wall:.4f} of it in fsync)")
+    return {"launches": total, "max_abs_err": err}
 
 
 # ----------------------------------------------------------------------
@@ -5653,6 +6368,10 @@ def main() -> int:
         mark("partitioned")
         replicated_rec = phase_replicated(args.seed)
         mark("replicated")
+        config5_rec = phase_config5(smi)
+        mark("config5")
+        chaos_rec = phase_chaos(smi)
+        mark("chaos")
         time_rec = phase_time(args.seed)
         mark("times")
         log("phase walls: " + ", ".join(
@@ -5664,7 +6383,8 @@ def main() -> int:
                     serve_rec["max_abs_err"], dds_rec["max_abs_err"],
                     fuzz_rec["max_abs_err"], framework_rec["max_abs_err"],
                     partitioned_rec["max_abs_err"],
-                    replicated_rec["max_abs_err"])
+                    replicated_rec["max_abs_err"],
+                    config5_rec["max_abs_err"], chaos_rec["max_abs_err"])
         paths = {"main path": main_rec["launches"],
                  "fuzz": fuzz_rec["launches"],
                  "config10": pool_rec["config10_launches"],
@@ -5678,7 +6398,9 @@ def main() -> int:
                  "dds": dds_rec["launches"],
                  "framework": framework_rec["launches"],
                  "partitioned": partitioned_rec["launches"],
-                 "replicated": replicated_rec["launches"]}
+                 "replicated": replicated_rec["launches"],
+                 "config5": config5_rec["launches"],
+                 "chaos": chaos_rec["launches"]}
     except Exception:  # noqa: BLE001 - report any failed phase, exit 1
         traceback.print_exc()
         log("FAIL")

@@ -5,9 +5,6 @@ Reference: server/routerlicious/packages/memory-orderer/src/
 localOrderer.ts (``setupLambdas`` :237) — the whole service in-proc
 over an in-memory Kafka; used by tinylicious/local-server and every
 integration test (SURVEY §4 pillar (c)).
-
-The port's copy leaves out the native sequencer core
-(``FFTPU_NATIVE_SEQUENCER``): it comes with the native layer.
 """
 from __future__ import annotations
 
@@ -38,6 +35,8 @@ class LocalOrderer:
                  storage=None, checkpoint_every: int = 1,
                  storage_breaker=None, write_fence=None,
                  clock=None):
+        import os
+
         from .telemetry import Lumberjack
         self.document_id = document_id
         self.lumberjack = lumberjack or Lumberjack()
@@ -61,6 +60,24 @@ class LocalOrderer:
         self.op_log = storage.op_log if storage is not None else OpLog()
         self.summary_store = SummaryStore(storage)
         self.sequencer = DocumentSequencer(document_id, clock=clock)
+        if os.environ.get("FFTPU_NATIVE_SEQUENCER") == "1":
+            try:
+                from ..native import NativeSequencerCore
+                self.sequencer = NativeSequencerCore(document_id,
+                                                     clock=clock)
+            except (RuntimeError, OSError) as e:
+                # toolchain unavailable: the Python path stands in,
+                # but an env var that asked for the native core and
+                # didn't get it must not fall back silently
+                import sys
+
+                print(
+                    f"orderer[{document_id}]: FFTPU_NATIVE_SEQUENCER"
+                    f"=1 but the native core is unavailable "
+                    f"({type(e).__name__}: {e}); using the Python "
+                    "sequencer",
+                    file=sys.stderr,
+                )
         self._checkpoint_every = checkpoint_every
         self._since_checkpoint = 0
         # leaves that could not replicate during a quorum-loss
@@ -114,13 +131,22 @@ class LocalOrderer:
                     "discarding it and fast-forwarding from the log",
                     file=sys.stderr,
                 )
-                self.sequencer = DocumentSequencer(document_id,
-                                                   clock=clock)
+                self.sequencer = type(self.sequencer)(
+                    document_id, clock=clock)
             # ops sequenced after the last checkpoint write (or with a
             # lost/absent checkpoint entirely) are in the durable log;
             # fast-forward the stream position so new tickets continue
             # the contiguous order
-            self.sequencer.fast_forward(self.op_log.last_seq)
+            if hasattr(self.sequencer, "fast_forward"):
+                self.sequencer.fast_forward(self.op_log.last_seq)
+            else:
+                # implementations without the O(1) resume (the native
+                # core) walk the gap the old way
+                gap = (self.op_log.last_seq
+                       - self.sequencer.sequence_number)
+                for _ in range(max(0, gap)):
+                    self.sequencer.system_message(
+                        MessageType.NO_OP, None)
             # scribe's replica must fast-forward with the log too, or
             # the first post-restart message trips its contiguity
             # check (scribe/lambda.ts:108 skips below-checkpoint
@@ -211,8 +237,15 @@ class LocalOrderer:
         fork.) Refused messages still queued from the aborted pump
         are dropped: never persisted, never fanned out, their
         submitters still hold them pending."""
-        self.sequencer = DocumentSequencer.restore(pre, clock=self.clock)
-        self.sequencer.fast_forward(self.op_log.last_seq)
+        self.sequencer = type(self.sequencer).restore(
+            pre, clock=self.clock)
+        if hasattr(self.sequencer, "fast_forward"):
+            self.sequencer.fast_forward(self.op_log.last_seq)
+        else:
+            gap = (self.op_log.last_seq
+                   - self.sequencer.sequence_number)
+            for _ in range(max(0, gap)):
+                self.sequencer.system_message(MessageType.NO_OP, None)
         self._dispatch_queue.clear()
         self.scribe.protocol.sequence_number = \
             self.sequencer.sequence_number
@@ -274,7 +307,8 @@ class LocalOrderer:
             except self._unavailable_error() as e:
                 return self._unavailable_nack(op, e)
             # full checkpoint, not a scalar snapshot: checkpoint()/
-            # restore() is the sequencer's rollback surface, and its
+            # restore() is the only rollback surface BOTH sequencer
+            # implementations (python + native core) share, and its
             # cost is O(connected clients of THIS document) — the
             # collaborator count, not the fleet — paid only on the
             # replicated plane (write_fence unset = plain plane,
@@ -380,7 +414,9 @@ class LocalOrderer:
         return {"sequencer": self.sequencer.checkpoint()}
 
     def restore(self, state: dict) -> None:
-        self.sequencer = DocumentSequencer.restore(
+        # preserve the sequencer implementation (a NativeSequencerCore
+        # must not silently degrade to the Python path on restart)
+        self.sequencer = type(self.sequencer).restore(
             state["sequencer"], clock=self.clock
         )
         # scribe's replica resumes at the checkpointed stream position

@@ -16,11 +16,6 @@ whole overload scenario is deterministic (no sockets, no event loop,
 no timing races) — and reports goodput, shed counts per class, peak
 outbound depth and the registry delta. bench.py config8 sweeps it
 over offered-load multiples with the throttler on vs off.
-
-A copy of the reference's ``tools/stress.py``. The chaos storm modes
-(``--chaos``, ``--kill-leader``, ``--netsplit``) run over the
-replicated plane of ``testing.chaos``; they exit with an error until
-that is ported.
 """
 from __future__ import annotations
 
@@ -427,27 +422,122 @@ def main(argv: Optional[list[str]] = None) -> int:  # pragma: no cover
     parser.add_argument("--no-throttle", action="store_true",
                         help="with --overload: run the unprotected "
                              "baseline (no admission control)")
-    # the chaos storm modes run testing.chaos's storm over the
-    # replicated plane, which this package has not ported yet: the
-    # flags stay so that a script asking for them fails loudly
     parser.add_argument("--chaos", type=int, default=None,
                         metavar="SEED",
-                        help="refused: the seeded chaos storm needs "
-                             "testing.chaos's storm (not ported)")
+                        help="run the seeded chaos storm "
+                             "(testing/chaos.py): steady -> fault "
+                             "storm at every registered seam -> "
+                             "recovery; reports goodput dip, "
+                             "recovery time and chaos_injected "
+                             "counts, deterministic per seed")
+    parser.add_argument("--sites", default=None,
+                        help="with --chaos: comma-separated site "
+                             "subset (e.g. socket.frame_in,"
+                             "sidecar.dispatch)")
+    parser.add_argument("--chaos-steps", type=int, default=120)
+    parser.add_argument("--chaos-storm", type=int, nargs=2,
+                        default=(40, 80), metavar=("LO", "HI"),
+                        help="storm window [LO, HI) in steps")
+    parser.add_argument("--sidecar-device", default="cuda",
+                        help="the chaos harness's merge sidecar device "
+                             "(default cuda; cpu runs the plain "
+                             "version)")
     parser.add_argument("--kill-leader", type=int, nargs="?",
                         const=-1, default=None, metavar="STEP",
-                        help="refused: needs the replicated plane "
-                             "(not ported)")
+                        help="with --chaos: run the storm over the "
+                             "REPLICATED sequencer plane and kill "
+                             "the leader at STEP (default: "
+                             "mid-storm); reports failover_time_s "
+                             "and repl_lag_max next to goodput_dip "
+                             "— a failing failover seed reproduces "
+                             "from this CLI alone")
     parser.add_argument("--netsplit", type=int, default=None,
                         metavar="SEED",
-                        help="refused: needs the replicated plane "
-                             "(not ported)")
+                        help="run the seeded storm over the "
+                             "REPLICATED plane with the leader "
+                             "partitioned away from its quorum for "
+                             "the middle half of the storm window: "
+                             "writes must nack retriable-"
+                             "unavailable, never hang; reports "
+                             "unavailability_s and degraded_read_s "
+                             "next to goodput_dip and the chaos "
+                             "counts — a failing netsplit seed "
+                             "reproduces from this CLI alone")
     args = parser.parse_args(argv)
-    if (args.chaos is not None or args.kill_leader is not None
-            or args.netsplit is not None):
-        parser.error("--chaos, --kill-leader and --netsplit run "
-                     "testing.chaos's storm, which "
-                     "fluidframework_tpu_torch has not ported yet")
+    if args.kill_leader is not None and args.chaos is None:
+        parser.error("--kill-leader requires --chaos SEED")
+    if args.netsplit is not None and args.kill_leader is not None:
+        parser.error("--netsplit and --kill-leader are separate "
+                     "storm modes; run them as separate storms")
+    if args.netsplit is not None and args.chaos is not None:
+        parser.error("--netsplit runs its own seeded storm; drop "
+                     "--chaos (the --netsplit value IS the seed)")
+    if args.chaos is not None or args.netsplit is not None:
+        from ..testing.chaos import run_chaos_storm
+
+        kill_step = args.kill_leader
+        if kill_step == -1:
+            kill_step = sum(args.chaos_storm) // 2  # mid-storm
+        if kill_step is not None and not (
+                0 <= kill_step < args.chaos_steps):
+            parser.error(
+                f"--kill-leader {kill_step} outside the step range "
+                f"[0, {args.chaos_steps})")
+        netsplit_window = None
+        if args.netsplit is not None:
+            lo, hi = args.chaos_storm
+            quarter = max(1, (hi - lo) // 4)
+            netsplit_window = (lo + quarter, hi - quarter)
+            if not (0 <= netsplit_window[0] < netsplit_window[1]
+                    < args.chaos_steps):
+                parser.error(
+                    f"netsplit window {netsplit_window} (middle "
+                    f"half of the storm {args.chaos_storm}) falls "
+                    f"outside the step range [0, {args.chaos_steps})")
+        report = run_chaos_storm(
+            seed=args.chaos if args.chaos is not None
+            else args.netsplit,
+            steps=args.chaos_steps,
+            storm=tuple(args.chaos_storm),
+            sites=args.sites.split(",") if args.sites else None,
+            kill_leader_step=kill_step,
+            netsplit=netsplit_window,
+            device=args.sidecar_device,
+        )
+        print(json.dumps({
+            "seed": report.seed,
+            "steps": report.steps,
+            "storm_steps": list(report.storm_steps),
+            "offered_ops": report.offered_ops,
+            "acked_ops": report.acked_ops,
+            "goodput_steady": round(report.goodput_steady, 4),
+            "goodput_dip": round(report.goodput_dip, 4),
+            "recovery_steps": report.recovery_steps,
+            "recovery_time_s": report.recovery_time_s,
+            "kill_leader_step": report.kill_leader_step,
+            "failover_time_s": report.failover_time_s,
+            # the causal decomposition + federated fleet snapshot
+            # (obs/timeline.py, obs/federation.py): a kill-leader run
+            # reports WHERE the failover time went, not one number
+            "failover_phases": report.failover_phases,
+            "fleet_metrics": report.fleet_metrics,
+            "failovers": report.failovers,
+            "repl_lag_max": report.repl_lag_max,
+            # the netsplit leg (quorum-loss degraded mode): how long
+            # the plane browned out, and how long reads stayed
+            # clamped at the stale committed watermark
+            "netsplit_window": list(report.netsplit_window)
+            if report.netsplit_window else None,
+            "unavailability_s": report.unavailability_s,
+            "degraded_read_s": report.degraded_read_s,
+            "unavailable_nacks": report.unavailable_nacks,
+            "converged": report.converged,
+            "failures": report.failures,
+            "fired": report.fired,
+            "chaos_counts": report.chaos_counts,
+            "metrics_delta": report.metrics_delta,
+        }))
+        return 0 if report.converged else 1
     if args.overload is not None:
         report = run_overload(OverloadConfig(
             offered_multiple=args.overload,

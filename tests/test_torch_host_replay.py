@@ -1,8 +1,11 @@
 """The port's scalar host replay (``ops.host_replay``) against the JAX
-package's and against the port's scan, and the port's scan against the
+package's and against the port's scan, the port's scan against the
 reference's compiled C++ replayer (``native/merge_replay.cpp`` through
-``native.replay_baseline``): the same recorded streams, the same tables,
-texts, signatures and checksums. Exact: the work is integer-only."""
+``native.replay_baseline``), and the port's own C++ replayer and host
+tier (its copy of ``merge_replay.cpp``, built by its own loader) against
+the reference's: the same recorded streams, the same tables, texts,
+signatures, checksums and live counts. Exact: the work is
+integer-only."""
 import numpy as np
 import pytest
 
@@ -12,11 +15,15 @@ from fluidframework_tpu.native.replay_baseline import (
     replay,
     table_checksum,
 )
+from fluidframework_tpu.native.replay_baseline import (
+    MergeHostSession as RefMergeHostSession,
+)
 from fluidframework_tpu.ops import encode_stream as ref_encode_stream
 from fluidframework_tpu.ops.host_replay import (
     replay_encoded as ref_replay_encoded,
 )
 from fluidframework_tpu.testing import FuzzConfig, record_op_stream
+from fluidframework_tpu_torch import native as port_native
 from fluidframework_tpu_torch.convert import batch_from_numpy
 from fluidframework_tpu_torch.ops.host_bridge import (
     build_batch,
@@ -25,6 +32,7 @@ from fluidframework_tpu_torch.ops.host_bridge import (
     extract_text,
     fetch,
 )
+from fluidframework_tpu_torch.native import replay_baseline as port_baseline
 from fluidframework_tpu_torch.ops.host_replay import replay_encoded
 from fluidframework_tpu_torch.ops.merge_kernel import apply_window
 from fluidframework_tpu_torch.ops.segment_table import make_table
@@ -77,3 +85,52 @@ def test_scan_matches_cpp_replay(seed):
     # live char count = converged text length (the workload is
     # text-only: no markers)
     assert live == len(text)
+
+
+def _fuzz(seed, n_steps=100):
+    return record_op_stream(FuzzConfig(
+        n_clients=3, n_steps=n_steps, seed=seed * 17 + 3,
+        remove_weight=0.3, annotate_weight=0.15, insert_props_weight=0.3,
+    ))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_port_cpp_replay_equals_reference(seed):
+    """The port's replayer on its own encoding equals the reference's on
+    the reference's: the encoded arrays, checksum and live count (one
+    rep and three), and the port's scan."""
+    assert port_native.load_merge_replay() is not None, (
+        port_native.merge_replay_error())
+    text, stream = _fuzz(seed)
+    enc = encode_stream(stream)
+    arr = port_baseline.encode_ops_array(enc)
+    ref_arr = encode_ops_array(ref_encode_stream(stream))
+    assert np.array_equal(arr, ref_arr)
+    for reps in (1, 3):
+        got, want = port_baseline.replay(arr, reps), replay(ref_arr, reps)
+        assert got[:2] == want[:2], reps
+    assert got[0] == port_baseline.table_checksum(scan_table(enc, 1024), 0)
+
+
+def test_port_host_session_equals_reference():
+    """Both packages' C++ host tiers (``MergeHostSession``) fed the same
+    rows of eight documents in three rounds: equal checksums, live
+    counts and texts, each equal to the port's scan."""
+    streams = [_fuzz(seed, 80)[1] for seed in range(8)]
+    encs = [encode_stream(s) for s in streams]
+    arrs = [port_baseline.encode_ops_array(e) for e in encs]
+    port, ref = port_baseline.MergeHostSession(8), RefMergeHostSession(8)
+    for r in range(3):
+        parts = [a[len(a) * r // 3:len(a) * (r + 1) // 3] for a in arrs]
+        rows = np.concatenate(parts)
+        doc_of_row = np.repeat(np.arange(8), [len(p) for p in parts])
+        port.apply(rows, doc_of_row)
+        ref.apply(rows, doc_of_row)
+    for d, enc in enumerate(encs):
+        assert port.stats(d) == ref.stats(d), d
+        assert port.text(d, enc) == ref.text(d, enc) == extract_text(
+            scan_table(enc, 1024), enc, 0)
+        assert port.stats(d)[0] == port_baseline.table_checksum(
+            scan_table(enc, 1024), 0)
+    port.close()
+    ref.close()

@@ -182,6 +182,17 @@ ORDERING_MODULES = (
     "fluidframework_tpu_torch.obs.timeline",
 )
 
+# the native host layer (the C++ sequencer core and merge replayer with
+# their loaders) and the chaos harness and its CLI, named for the same
+# reason
+NATIVE_MODULES = (
+    "fluidframework_tpu_torch.native",
+    "fluidframework_tpu_torch.native.sequencer_core",
+    "fluidframework_tpu_torch.native.replay_baseline",
+    "fluidframework_tpu_torch.testing.chaos",
+    "fluidframework_tpu_torch.tools.stress",
+)
+
 _CHILD = r"""
 import importlib, json, pkgutil, sys
 import fluidframework_tpu_torch as port
@@ -216,7 +227,7 @@ def test_port_import_loads_no_jax():
     assert set(ROUTE_MODULES + TREE_MODULES + POOL_MODULES
                + MATRIX_MODULES + OBS_MODULES + SERVICE_MODULES
                + INGRESS_MODULES + DDS_MODULES + FRAMEWORK_MODULES
-               + ORDERING_MODULES) <= set(out["names"])
+               + ORDERING_MODULES + NATIVE_MODULES) <= set(out["names"])
     assert out["bad"] == []
 
 
@@ -229,7 +240,7 @@ def test_source_scan_covers_the_route_modules():
     for name in (ROUTE_MODULES + TREE_MODULES + POOL_MODULES
                  + MATRIX_MODULES + OBS_MODULES + SERVICE_MODULES
                  + INGRESS_MODULES + DDS_MODULES + FRAMEWORK_MODULES
-                 + ORDERING_MODULES):
+                 + ORDERING_MODULES + NATIVE_MODULES):
         path = REPO.joinpath(*name.split(".")).with_suffix(".py")
         if not path.exists():  # a package
             path = path.with_suffix("") / "__init__.py"
@@ -372,6 +383,59 @@ def test_ordering_modules_import_alone():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert json.loads(proc.stdout.splitlines()[-1]) == []
+
+
+_NATIVE_CHILD = r"""
+import json, sys
+seen = []
+sys.addaudithook(lambda event, args: seen.append((event, repr(args)))
+                 if event in ("open", "ctypes.dlopen", "subprocess.Popen")
+                 else None)
+from fluidframework_tpu_torch import native
+from fluidframework_tpu_torch.native.replay_baseline import MergeHostSession
+from fluidframework_tpu_torch.native.sequencer_core import MultiDocSequencer
+assert native.load_native_sequencer() is not None, native.native_build_error()
+assert native.load_merge_replay() is not None, native.merge_replay_error()
+MultiDocSequencer(2).join(1, 0)
+MergeHostSession(2).close()
+print(json.dumps(seen))
+"""
+
+
+def test_native_layer_reads_nothing_of_the_reference(tmp_path):
+    """The port's native layer, imported, built and loaded in a fresh
+    interpreter (with its build directory empty, so ``g++`` runs),
+    opens, compiles and loads no file of ``fluidframework_tpu/`` (no
+    ``.cpp`` and no ``.so`` of the reference's ``native/``), and loads
+    neither JAX nor the JAX package."""
+    import shutil
+
+    from fluidframework_tpu_torch import native
+
+    copy = tmp_path / "repo"
+    shutil.copytree(PORT, copy / PORT.name, ignore=shutil.ignore_patterns(
+        "_build", "__pycache__"))
+    env = dict(os.environ)
+    env.pop("FFTPU_SANITIZE", None)
+    env.pop("FFTPU_DISABLE_NATIVE", None)
+    proc = subprocess.run([sys.executable, "-c", _NATIVE_CHILD],
+                          cwd=copy, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    seen = json.loads(proc.stdout.splitlines()[-1])
+    reference = str(REPO / "fluidframework_tpu") + os.sep
+    assert [e for e in seen if reference in e[1]
+            or "fluidframework_tpu/" in e[1]] == []
+    built = copy / PORT.name / "_build"
+    compiled = [e for e in seen if e[0] == "subprocess.Popen"]
+    assert len(compiled) == 2 and all(
+        str(copy / PORT.name / "native") in e[1] for e in compiled)
+    loaded = [e for e in seen if e[0] == "ctypes.dlopen"
+              and str(built) in e[1]]
+    assert len(loaded) == 2, seen
+    assert sorted(p.name.split("-")[0] for p in built.glob("*.so")) == [
+        "merge_replay", "sequencer"]
+    assert native.BUILD_DIR == PORT / "_build"
 
 
 def _start_service(args, data_dir):

@@ -12,6 +12,14 @@ Mirrored by hand, with the reference's slow mark (they start service
 subprocesses: ``python -m <package>.service.broker`` / ``.moira``):
 ``test_broker.py::test_partitions_span_processes_against_one_broker``
 and ``test_moira.py::test_moira_two_process_durable``.
+
+``test_replication`` reads some process-wide counters as absolute
+values (``repl_rejoin_total == 1`` after one rejoin), as a fresh
+process has them; each mirrored case therefore puts both packages'
+process-wide registries back as it found them
+(``test_torch_service_layers.registries_restored``), so that the
+reference's own ``tests/test_replication.py`` may follow this file in
+one test worker.
 """
 import pytest
 
@@ -19,6 +27,7 @@ from test_torch_service_layers import (
     PACKAGES,
     case_id,
     mirror_cases,
+    registries_restored,
     run_mirrored,
 )
 
@@ -29,6 +38,11 @@ SLOW = {
     ("test_broker", "test_partitions_span_processes_against_one_broker"),
     ("test_moira", "test_moira_two_process_durable"),
 }
+
+
+@pytest.fixture(autouse=True)
+def _registries_restored():
+    yield from registries_restored()
 
 
 def test_every_module_mirrored_whole():

@@ -147,6 +147,33 @@ def run_mirrored(package, module, name, request, params=(), edits=()):
     fn(**kwargs)
 
 
+def registries_restored():
+    """A fixture body: after the case, every series of each package's
+    process-wide ``REGISTRY`` holds the value it had before it, and a
+    series the case created is zeroed (``MetricsRegistry.reset``'s
+    notion of empty). Mirrored bodies then leave no counts behind for a
+    reference test that reads a counter's absolute value in the same
+    process."""
+    import copy
+    import importlib
+
+    registries = [importlib.import_module(f"{p}.obs.metrics").REGISTRY
+                  for p in PACKAGES]
+    saved = [{(name, key): copy.deepcopy(child)
+              for name, fam in r._families.items()
+              for key, child in fam._children.items()}
+             for r in registries]
+    yield
+    for registry, before in zip(registries, saved):
+        registry.reset()
+        for name, fam in registry._families.items():
+            for key, child in fam._children.items():
+                if (name, key) in before:
+                    for slot in type(child).__slots__:
+                        setattr(child, slot,
+                                getattr(before[name, key], slot))
+
+
 def alfred_fixture(package, monkeypatch):
     """The ``alfred`` fixture of ``tests/conftest.py`` with the
     ingress taken from ``package``: ``start(...)`` returns the running
