@@ -70,7 +70,10 @@ width through the array lane (16384 documents x 4 clients, one native
 round; the C++ host tier and scalar replayer beside it), runs bench
 config11-13's chaos storms and the reference's three 20-seed chaos
 sweeps through the port's chaos harness with ``GpuMergeSidecar`` on
-the card, and times the kernel beside its plain version.
+the card (failsan accounting every fault of config11's and config13's
+storms), runs the port's runtime sanitizers over a chaos sweep and a
+serve_bench slice on the card against the port's static fluidlint
+families, and times the kernel beside its plain version.
 
 The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
@@ -138,7 +141,13 @@ the first round's window). The "chaos" line (with the card) holds each
 storm (goodput, recovery, failover or netsplit times, faults per site,
 its runs equal on the card and on the CPU), each sweep (every seed ==
 the fault-free oracle, tiers, faults per site) and each leg's B1
-launches, wall and fsync share.
+launches, wall and fsync share, and failsan's fault-to-signal
+accounting on config11's and config13's storms. The "sanitizers" line
+(with the card) holds fluidsan, detsan, wiresan and jitsan over a chaos
+sweep and a serve_bench slice with the sidecar on the card: trips (none),
+the runtime lock edges, un-routed clock sites and frame fields beside
+the port's static families' graph, findings and schema, B1's launches,
+and the static run's and the phase's walls.
 The times lines cover the
 window rungs 16 / 32 / 64 at the main shape and the capacities 4096 and
 8192, with the NOOP share and the bound of each timed batch. Every phase
@@ -5906,6 +5915,7 @@ CHAOS_SEEDS = 20  # the reference's sweeps (tests/test_chaos.py:47)
 CHAOS_CRASH_SEEDS = (0, 3)  # config11's convergence leg (bench.py:2115)
 CHAOS_KILL_SEEDS = (1, 2, 6)  # config12's, one per kill mode (:2220)
 CHAOS_SPLIT_SEEDS = (0, 1, 2, 3, 7)  # config13's, one per split mode (:2368)
+CHAOS_ACCOUNTED = ("config11", "config13")  # failsan rides these storms
 
 
 class _FileSyncTimes:
@@ -5991,23 +6001,14 @@ def _storm_line(name: str, rep, launches: int, wall: float, fsync: float,
             f"({fsync / wall:.4f} of the wall), rename {rename:.3f} s")
 
 
-def phase_chaos(card: str) -> dict:
-    """bench config11-13 at ``full`` (bench.py:2058-2420) through the
-    port's chaos harness with ``GpuMergeSidecar`` on the card: each
-    storm twice (equal ``deterministic_fields()``) and once with the
-    sidecar on the CPU (equal again), the fault-free oracles, and the
-    reference's three 20-seed convergence sweeps (crash-restart with
-    torn states, leader kills, netsplits), each seed equal to its
-    oracle; the configs' convergence legs are seeds of the sweeps."""
+@contextlib.contextmanager
+def _held_scan_dispatches():
+    """While open, ``GpuMergeSidecar._apply_program`` keeps, per slab
+    capacity, the first scan dispatch with real ops: its table, batch
+    and a copy of its output (the dict yielded)."""
     from fluidframework_tpu_torch.ops.window_cost import real_ops
     from fluidframework_tpu_torch.service.gpu_sidecar import GpuMergeSidecar
-    from fluidframework_tpu_torch.testing import chaos
 
-    t0 = time.perf_counter()
-    total = 0
-    lines = []
-    # the oracles' first scan dispatch with real ops at each slab
-    # capacity (16, then 32 after the grow): inputs and output kept
     held = {}
     inner = GpuMergeSidecar._apply_program
 
@@ -6019,24 +6020,79 @@ def phase_chaos(card: str) -> dict:
                 *(t.clone() for t in out)))
         return out
 
+    GpuMergeSidecar._apply_program = holding
+    try:
+        yield held
+    finally:
+        GpuMergeSidecar._apply_program = inner
+
+
+def _check_held(held: dict, what: str) -> int:
+    """Each held dispatch's output == the kernel's and the plain
+    version's on its inputs; returns the max abs error."""
+    err = 0
+    for cap, (table, batch, out) in sorted(held.items()):
+        want, e = _check_window(table, batch, f"{what}'s {table.docs} x "
+                                f"{cap} dispatch")
+        err = max(err, e)
+        if not all(torch.equal(x, y) for x, y in zip(out, want)):
+            raise AssertionError(f"{what}: the sidecar's {cap}-slot "
+                                 "dispatch differs from plain")
+    return err
+
+
+def _under_failsan(run, name: str, accounted: dict):
+    """``run()`` under failsan (install, reset, run, flush, trips,
+    coverage, uninstall, as bench's config11 and config13 legs do);
+    raises on a trip or a coverage below 1.0, and puts the fired sites
+    and the coverage in ``accounted[name]``."""
+    from fluidframework_tpu_torch.testing import failsan
+
+    failsan.install()
+    try:
+        failsan.reset()
+        out = run()
+        failsan.flush()
+        trips = failsan.trips()
+        coverage = failsan.signal_coverage()
+        events = failsan._STATE.total_events
+    finally:
+        failsan.reset()
+        failsan.uninstall()
+    if trips or coverage != 1.0 or events <= 0:
+        raise AssertionError(
+            f"chaos: {name}'s fault-to-signal accounting: coverage "
+            f"{coverage} over {events} events, trips:\n"
+            + "\n".join(t.describe() for t in trips))
+    sites = sorted(_sites(out.chaos_counts))
+    accounted[name] = (f"{events} fired events at {len(sites)} sites "
+                       f"{sites}, signal coverage {coverage}, no trips")
+    return out
+
+
+def phase_chaos(card: str) -> dict:
+    """bench config11-13 at ``full`` (bench.py:2058-2420) through the
+    port's chaos harness with ``GpuMergeSidecar`` on the card: each
+    storm twice (equal ``deterministic_fields()``) and once with the
+    sidecar on the CPU (equal again), the fault-free oracles, and the
+    reference's three 20-seed convergence sweeps (crash-restart with
+    torn states, leader kills, netsplits), each seed equal to its
+    oracle; the configs' convergence legs are seeds of the sweeps."""
+    from fluidframework_tpu_torch.testing import chaos
+
+    t0 = time.perf_counter()
+    total = 0
+    lines = []
     with _FileSyncTimes() as files:
-        # the fault-free oracles (plain and replicated plane)
-        GpuMergeSidecar._apply_program = holding
-        try:
+        # the fault-free oracles (plain and replicated plane); their
+        # first scan dispatch at each slab capacity (16, then 32 after
+        # the grow) is held against plain
+        with _held_scan_dispatches() as held:
             (oracle, fo), n, wall, fs, rn = _chaos_leg(lambda: (
                 chaos.run_chaos(0, faults=False),
                 chaos.run_chaos_failover(0, faults=False)), files)
-        finally:
-            GpuMergeSidecar._apply_program = inner
         total += n
-        err = 0
-        for cap, (table, batch, out) in sorted(held.items()):
-            want, e = _check_window(table, batch, f"the chaos sidecar's "
-                                    f"{table.docs} x {cap} dispatch")
-            err = max(err, e)
-            if not all(torch.equal(x, y) for x, y in zip(out, want)):
-                raise AssertionError(f"chaos: the sidecar's {cap}-slot "
-                                     "dispatch differs from plain")
+        err = _check_held(held, "chaos")
         if sorted(held) != [chaos.ChaosHarness.SIDECAR_CAPACITY,
                             chaos.ChaosHarness.SIDECAR_MAX_CAPACITY]:
             raise AssertionError(f"chaos: held dispatches at {sorted(held)}")
@@ -6062,13 +6118,21 @@ def phase_chaos(card: str) -> dict:
                   ("config12", 12, {"kill_leader_step": mid}),
                   ("config13", 13, {"netsplit": (CHAOS_STORM[0] + quarter,
                                                  CHAOS_STORM[1] - quarter)}))
+        accounted = {}
         for name, seed, kw in storms:
             def storm(device="cuda", seed=seed, kw=kw):
                 return chaos.run_chaos_storm(
                     seed=seed, steps=CHAOS_STEPS, storm=CHAOS_STORM,
                     device=device, **kw)
 
-            rep, n, wall, fs, rn = _chaos_leg(storm, files)
+            if name in CHAOS_ACCOUNTED:
+                # bench.py:2085-2104 (config11) and :2318-2335 (config13):
+                # every fault the storm injects maps to a signal
+                rep, n, wall, fs, rn = _chaos_leg(
+                    lambda storm=storm, name=name: _under_failsan(
+                        storm, name, accounted), files)
+            else:
+                rep, n, wall, fs, rn = _chaos_leg(storm, files)
             again = storm()
             t_cpu = time.perf_counter()
             cpu = storm("cpu")
@@ -6177,13 +6241,208 @@ def phase_chaos(card: str) -> dict:
         f"(crash with tear {[r.tear for r in crash]}, applied); "
         f"config12's: seeds {CHAOS_KILL_SEEDS} = kill modes "
         f"{sorted(kill)}; config13's: seeds {CHAOS_SPLIT_SEEDS} = split "
-        f"modes {sorted(split)}; config11's and config13's failsan "
-        f"fault-to-signal accounting waits for testing/failsan (ROADMAP "
-        f"A item 2); the file syncs: fsync {files.s['fsync']:.3f} s over "
+        f"modes {sorted(split)}; failsan's fault-to-signal accounting "
+        f"(testing/failsan.py) on the first card run of "
+        + "; ".join(f"{k}'s storm: {v}" for k, v in accounted.items())
+        + f"; the file syncs: fsync {files.s['fsync']:.3f} s over "
         f"{files.n['fsync']} calls, rename {files.s['replace']:.3f} s over "
         f"{files.n['replace']}; B1 launches {total}; phase wall "
         f"{wall:.3f} s ({files.s['fsync'] / wall:.4f} of it in fsync)")
     return {"launches": total, "max_abs_err": err}
+
+
+# ----------------------------------------------------------------------
+# the runtime sanitizers beside the static families, on the card
+
+SANITIZER_SEEDS = (0, 1, 2, 3, 4)  # seed 3: crash + torn-state restart
+SANITIZER_STEPS = 12  # tests/test_detsan.py's chaos run
+SANITIZER_SERVE = dict(n_docs=8, readers_per_doc=2, duration_s=1.0,
+                       tick_s=0.05, capacity_ops_per_s=100.0,
+                       offered_multiple=0.8, seed=7, sidecar_docs=8)
+
+
+def _static_side() -> dict:
+    """One combined run of the port's families over its default roots
+    (every family clean, the allowlist empty), then the three surfaces
+    the sanitizers are held to: concheck's lock graph by creation site,
+    detcheck's findings, wirecheck's extracted emits."""
+    from fluidframework_tpu_torch.analysis import (
+        concurrency, core, wirecheck,
+    )
+
+    t = time.perf_counter()
+    findings = core.run_analysis()
+    run_s = time.perf_counter() - t
+    allowlist = core.load_allowlist()
+    kept, stale = core.apply_allowlist(findings, allowlist)
+    if kept or stale or allowlist:
+        raise AssertionError("sanitizers: the port's fluidlint gate is not "
+                             "clean: " + "; ".join(f.format() for f in kept)
+                             + f" stale {stale}")
+    t = time.perf_counter()
+    files = core.walk_python_files(core.DEFAULT_ROOTS)
+    lock_edges = concurrency.build_analysis(files).lock_edges_by_site()
+    ext, _facts = wirecheck.extract(files)
+    return {"run_s": run_s, "families": len(core.FAMILIES),
+            "files": len(files), "surfaces_s": time.perf_counter() - t,
+            "lock_edges": lock_edges, "emits": ext.emitted_fields(),
+            "det_sites": {(f.path, f.line) for f in findings
+                          if f.rule in core.FAMILY_RULES["detcheck"]}}
+
+
+def _socket_reentry() -> None:
+    """tests/test_sanitizer.py's lock-nesting scenario: a socket
+    driver's delivery callback (its dispatch thread holds ``svc.lock``)
+    issues a blocking ``read_ops``, which takes ``_pending_lock`` and
+    ``_send_lock`` under it."""
+    from fluidframework_tpu_torch.drivers.socket_driver import (
+        SocketDocumentService,
+    )
+    from fluidframework_tpu_torch.service.ingress import AlfredServer
+
+    loop = _Loop()
+    server = AlfredServer()
+    try:
+        loop.run(server.start())
+        svc = SocketDocumentService("127.0.0.1", server.port, "san-doc")
+        refetched = []
+
+        def on_message(msg):
+            if not refetched:
+                refetched.append(svc.read_ops(0))
+
+        svc.connect_to_delta_stream("sanity", on_message=on_message)
+        _until(lambda: refetched, "the delivery callback's read_ops", 30)
+        svc.close()
+    finally:
+        loop.run(server.stop())
+        loop.close()
+
+
+def phase_sanitizers(card: str) -> dict:
+    """fluidsan, detsan, wiresan and jitsan installed together (the
+    reference conftest's ``FFTPU_SANITIZE=1`` set, failsan riding the
+    chaos phase's storms) over the chaos sweep with faults and
+    crash-restart and a serve_bench slice, both with ``GpuMergeSidecar``
+    on the card; then no trip, and what they observed held to the
+    port's static families: runtime lock-order edges within concheck's
+    graph, un-routed clock sites within detcheck's findings and
+    ``WALL_CLOCK_SINKS``, frame fields within ``WIRE_SCHEMA`` and
+    wirecheck's emits. The socket driver's lock-nesting scenario runs
+    under them too, so the lock-edge check has edges to hold. The
+    first sidecar dispatch at each slab is held against plain."""
+    from fluidframework_tpu_torch.analysis import determinism
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.protocol.constants import (
+        wire_schema_fields,
+    )
+    from fluidframework_tpu_torch.testing import (
+        detsan, jitsan, sanitizer, wiresan,
+    )
+    from fluidframework_tpu_torch.testing.chaos import run_chaos
+    from fluidframework_tpu_torch.tools.serve_bench import (
+        ServeBenchConfig, run_serve_bench,
+    )
+
+    t0 = time.perf_counter()
+    static = _static_side()
+    sans = (("fluidsan", sanitizer), ("detsan", detsan),
+            ("wiresan", wiresan), ("jitsan", jitsan))
+    for _name, mod in sans:
+        mod.install()
+        mod.reset()
+    try:
+        with _held_scan_dispatches() as held:
+            t = time.perf_counter()
+            cuda_merge.LAUNCHES = 0
+            reports = [run_chaos(seed, faults=True,
+                                 n_steps=SANITIZER_STEPS)
+                       for seed in SANITIZER_SEEDS]
+            bench = run_serve_bench(ServeBenchConfig(**SANITIZER_SERVE))
+            _socket_reentry()
+            torch.cuda.synchronize()
+            launches = cuda_merge.LAUNCHES
+            run_s = time.perf_counter() - t
+        trips = {name: mod.trips() for name, mod in sans}
+        edges = sanitizer.edges_by_site()
+        unrouted = detsan.unrouted_wall_sites()
+        rng_sites = detsan.scoped_rng_sites()
+        observed_wall = detsan.observed_sites("wall")
+        fields = wiresan.observed()
+        seams = wiresan.observed_seams()
+        frames = wiresan.observed_frames()
+    finally:
+        for _name, mod in reversed(sans):
+            mod.reset()
+            mod.uninstall()
+    bad = [r.seed for r in reports if not r.converged]
+    if bad or bench.acked_ops <= 0:
+        raise AssertionError(f"sanitizers: chaos seeds {bad} diverged or "
+                             f"serve_bench acked {bench.acked_ops}")
+    tripped = {k: [t.describe() for t in v] for k, v in trips.items() if v}
+    if tripped:
+        raise AssertionError(f"sanitizers: trips {tripped}")
+    if launches <= 0 or not held:
+        raise AssertionError(f"sanitizers: B1 launched {launches} times "
+                             "under the sanitizers")
+    err = _check_held(held, "sanitizers")
+    missing_edges = edges - static["lock_edges"]
+    gaps = [r for r in unrouted
+            if (r.relpath, r.line) not in static["det_sites"]
+            and not determinism.sink_registered(r.relpath, r.func,
+                                                by_code_name=True)]
+    rng_gaps = [r for r in rng_sites
+                if (r.relpath, r.line) not in static["det_sites"]]
+    unschemed = sorted(k for k in fields
+                       if k[1] not in (wire_schema_fields(k[0]) or {}))
+    unextracted = sorted(
+        (ftype, field) for (ftype, field), seam_set in seams.items()
+        if any(x.startswith("pack:") for x in seam_set)
+        and field not in static["emits"].get(ftype, set())
+        and not (wire_schema_fields(ftype) or {}).get(
+            field, (None, None, False))[2])
+    if missing_edges or gaps or rng_gaps or unschemed or unextracted:
+        raise AssertionError(
+            f"sanitizers: runtime beyond the static families: lock edges "
+            f"{sorted(missing_edges)}, clock sites "
+            f"{[(r.relpath, r.line, r.func) for r in gaps]}, rng "
+            f"{[(r.relpath, r.line) for r in rng_gaps]}, fields outside "
+            f"WIRE_SCHEMA {unschemed}, pack fields wirecheck does not "
+            f"extract {unextracted}")
+    sidecar_wall = sorted({r.relpath for r in observed_wall
+                           if r.relpath.endswith("service/gpu_sidecar.py")})
+    if not sidecar_wall or not edges or not fields:
+        raise AssertionError(f"sanitizers: vacuous run (sidecar clock "
+                             f"reads {sidecar_wall}, edges {len(edges)}, "
+                             f"fields {len(fields)})")
+    fired = _sites([f for r in reports for f in r.fired])
+    wall = time.perf_counter() - t0
+    log(f"sanitizers ({card}): fluidsan, detsan, wiresan and jitsan "
+        f"installed over run_chaos(seed, faults=True, n_steps="
+        f"{SANITIZER_STEPS}) for seeds {list(SANITIZER_SEEDS)} (crash-"
+        f"restart with torn states on the odd seeds) and serve_bench "
+        f"{SANITIZER_SERVE}, GpuMergeSidecar on cuda, and the socket "
+        f"driver's delivery-callback read_ops: every seed "
+        f"converged ({sum(fired.values())} faults fired at {len(fired)} "
+        f"sites {sorted(fired)}), serve_bench acked {bench.acked_ops} "
+        f"ops; no trips; "
+        f"runtime lock-order edges {len(edges)} within concheck's "
+        f"{len(static['lock_edges'])} static edges; un-routed clock sites "
+        f"{len(unrouted)} (of {len(observed_wall)} observed clock sites, "
+        f"the sidecar's among them) within detcheck's "
+        f"{len(static['det_sites'])} findings and WALL_CLOCK_SINKS, scoped "
+        f"RNG sites {len(rng_sites)}; {len(fields)} (frame type, field) "
+        f"pairs over {len(frames)} frame types within WIRE_SCHEMA and "
+        f"wirecheck's emits; B1 launches {launches}, the first sidecar "
+        f"dispatch at each slab "
+        f"({[(t.docs, t.capacity, b.kind.shape[-1]) for t, b, _ in held.values()]}"
+        f" docs x slots x W) == plain; static side: one run of the "
+        f"port's {static['families']} families over "
+        f"{static['files']} files {static['run_s']:.3f} s (clean, empty "
+        f"allowlist) + the lock graph and wire extraction "
+        f"{static['surfaces_s']:.3f} s; sanitized run {run_s:.3f} s; "
+        f"phase wall {wall:.3f} s")
+    return {"launches": launches, "max_abs_err": err}
 
 
 # ----------------------------------------------------------------------
@@ -6372,6 +6631,8 @@ def main() -> int:
         mark("config5")
         chaos_rec = phase_chaos(smi)
         mark("chaos")
+        sanitizer_rec = phase_sanitizers(smi)
+        mark("sanitizers")
         time_rec = phase_time(args.seed)
         mark("times")
         log("phase walls: " + ", ".join(
@@ -6384,7 +6645,8 @@ def main() -> int:
                     fuzz_rec["max_abs_err"], framework_rec["max_abs_err"],
                     partitioned_rec["max_abs_err"],
                     replicated_rec["max_abs_err"],
-                    config5_rec["max_abs_err"], chaos_rec["max_abs_err"])
+                    config5_rec["max_abs_err"], chaos_rec["max_abs_err"],
+                    sanitizer_rec["max_abs_err"])
         paths = {"main path": main_rec["launches"],
                  "fuzz": fuzz_rec["launches"],
                  "config10": pool_rec["config10_launches"],
@@ -6400,7 +6662,8 @@ def main() -> int:
                  "partitioned": partitioned_rec["launches"],
                  "replicated": replicated_rec["launches"],
                  "config5": config5_rec["launches"],
-                 "chaos": chaos_rec["launches"]}
+                 "chaos": chaos_rec["launches"],
+                 "sanitizers": sanitizer_rec["launches"]}
     except Exception:  # noqa: BLE001 - report any failed phase, exit 1
         traceback.print_exc()
         log("FAIL")

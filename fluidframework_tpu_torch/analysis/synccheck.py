@@ -341,8 +341,13 @@ def check_source(source: str, path: str, roots: Iterable[str],
                  boundary: Iterable[str] = ()) -> list[Finding]:
     """Findings of one module's source with these loop roots and sync
     boundaries, suppressions applied."""
-    tree = ast.parse(source, filename=path)
-    lines = source.splitlines()
+    return _check_tree(ast.parse(source, filename=path),
+                       source.splitlines(), path, roots, boundary)
+
+
+def _check_tree(tree: ast.Module, lines: list, path: str,
+                roots: Iterable[str], boundary: Iterable[str]
+                ) -> list[Finding]:
     findings = []
     for fn in _reachable(tree, roots, boundary):
         findings.extend(_function_findings(fn, path))
@@ -370,3 +375,29 @@ def check_package(package: Path = PACKAGE,
         findings.extend(check_source(
             path.read_text(), f"{package.name}/{rel}", roots, boundary))
     return findings
+
+
+def check(files, loops: dict = DISPATCH_LOOPS) -> list:
+    """The fluidlint family ``synccheck`` (rule ``dispatch-loop-sync``):
+    this module's findings over the registered loops among a combined
+    run's parsed files (``core.SourceFile``), as ``core.Finding``. The
+    key is line-free: ``<module>:<function>:<synccheck rule>``."""
+    from .core import Finding as LintFinding
+
+    out = []
+    for src in files:
+        if src.tree is None:
+            continue
+        cfg = next((v for rel, v in loops.items()
+                    if src.relpath.endswith(rel)), None)
+        if cfg is None:
+            continue
+        roots, boundary = cfg
+        module = src.relpath.rsplit("/", 1)[-1]
+        for f in _check_tree(src.tree, src.source.splitlines(),
+                             src.relpath, roots, boundary):
+            out.append(LintFinding(
+                rule="dispatch-loop-sync", path=f.path, line=f.line,
+                message=f"[{f.rule}] in {f.function}(): {f.message}",
+                key=f"{module}:{f.function}:{f.rule}"))
+    return out

@@ -50,7 +50,7 @@ import dataclasses
 import os
 import sys
 import time
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
 import numpy as np
 import torch
@@ -102,8 +102,6 @@ from ..ops.segment_table import (
     make_table,
     shares_storage,
 )
-from ..parallel.mesh import DOC_AXIS, DeviceMesh
-from ..parallel.seq_shard import SEQ_AXIS, apply_window_seq_sharded
 from ..protocol.messages import MessageType, SequencedMessage
 from ..qos.faults import (
     KIND_DEFER,
@@ -111,6 +109,10 @@ from ..qos.faults import (
     KIND_ERROR_BURST,
     PLANE as _CHAOS,
 )
+
+if TYPE_CHECKING:
+    # service imports parallel function-locally only (layercheck's map)
+    from ..parallel.mesh import DeviceMesh
 
 # Registry families, the reference's names, kinds and labels (process
 # aggregates across every sidecar and pool; exact per-instance counts stay
@@ -248,6 +250,8 @@ class SeqShardedPool:
 
     def __init__(self, mesh: DeviceMesh, per_doc_capacity: int,
                  executor: Optional[str] = None):
+        from ..parallel.seq_shard import SEQ_AXIS
+
         if SEQ_AXIS not in mesh.axis_names:
             raise ValueError(
                 f"seq pool needs a {SEQ_AXIS!r} mesh axis (got "
@@ -312,6 +316,8 @@ class SeqShardedPool:
                 table, program_to_device(program, self.device), K=CHUNK_K,
                 steps=macro_steps(program["chunk_start"], CHUNK_K))
         else:
+            from ..parallel.seq_shard import apply_window_seq_sharded
+
             if self.executor in ("chunked", "egwalker"):
                 self._warn_route_once()
             out = apply_window_seq_sharded(table, OpBatch(**arrays),
@@ -465,6 +471,9 @@ def select_pool(mesh, per_doc_capacity: Optional[int] = None,
         source = "FFTPU_SIDECAR_POOL"
     if route is not None and route not in ("seq", "mesh"):
         raise ValueError(f"{source}={route!r}: expected 'seq' or 'mesh'")
+    from ..parallel.mesh import DOC_AXIS, DeviceMesh
+    from ..parallel.seq_shard import SEQ_AXIS
+
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"a merge pool needs a DeviceMesh, got {mesh!r}")
     seq_n = mesh.shape.get(SEQ_AXIS, 1)

@@ -18,6 +18,7 @@ No case of these modules is left out.
 import ast
 import functools
 import inspect
+import linecache
 import re
 from pathlib import Path
 
@@ -229,7 +230,13 @@ def _namespace(module: str, package: str, edits: tuple = ()) -> dict:
         assert old in source, (module, old)
         source = source.replace(old, new)
     namespace = {"__name__": f"{module}[{package}]", "__file__": str(path)}
-    exec(compile(source, f"{path}[{package}]", "exec"), namespace)
+    # the code's file name keeps the module's own base name (a sanitizer
+    # names a site by it) in a directory named for the package; linecache
+    # holds the executed source, so tracebacks and site names read it
+    filename = str(TESTS / f"[{package}]" / f"{module}.py")
+    linecache.cache[filename] = (len(source), None,
+                                 source.splitlines(True), filename)
+    exec(compile(source, filename, "exec"), namespace)
     return namespace
 
 
