@@ -73,7 +73,12 @@ sweeps through the port's chaos harness with ``GpuMergeSidecar`` on
 the card (failsan accounting every fault of config11's and config13's
 storms), runs the port's runtime sanitizers over a chaos sweep and a
 serve_bench slice on the card against the port's static fluidlint
-families, and times the kernel beside its plain version.
+families, replays the service cell's 1024 recorded documents and 16
+documents fetched over TCP through the port's tools (``replay_tool``,
+``fluid_runner``, ``fetch_tool``) into ``GpuMergeSidecar``, times that
+round with ``tools.benchmark``, runs ``tools.net_stress`` and the two
+examples that build a merge sidecar (``heat_dump``, ``op_trace``) on
+the card, and times the kernel beside its plain version.
 
 The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
@@ -147,7 +152,17 @@ accounting on config11's and config13's storms. The "sanitizers" line
 sweep and a serve_bench slice with the sidecar on the card: trips (none),
 the runtime lock edges, un-routed clock sites and frame fields beside
 the port's static families' graph, findings and schema, B1's launches,
-and the static run's and the phase's walls.
+and the static run's and the phase's walls. The "tools" line (with the
+card) holds each leg: the recorded documents (edits, ops replayed and
+the checkpointed replays' ops/s, the session's, save's and replay
+passes' seconds, the sidecar's applied ops, the harness's iterations
+and p50 / p95 / mean of the apply + sync round), the fetched documents
+(ops fetched and the fetch's seconds, replay ops/s), net_stress
+(workers, converged length, wall), each example's B1 launches and wall,
+and the checks (every replay, validation, export and served text ==
+the live writers', every served signature == its log's scalar replay,
+each leg's first dispatch == plain); the "tools harness" lines before
+it are ``BenchmarkReporter.render_table()`` and ``render_json()``.
 The times lines cover the
 window rungs 16 / 32 / 64 at the main shape and the capacities 4096 and
 8192, with the NOOP share and the bound of each timed batch. Every phase
@@ -4824,12 +4839,12 @@ PART_BROKER_DOCS = 64
 # document SERVICE_DOCS // 2 edits); every message there fsyncs several
 # files (see the fsync line)
 PART_DURABLE_ROUNDS = REPL_ROUNDS = 1
-# depth cuts made to fit the config5 and chaos phases (PERF.md section 4):
-# the in-memory and broker legs run 2 of the cell's 4 rounds, the durable
-# and replicated legs 4 of its 8 edits per writer (each of their messages
-# costs several fsyncs and renames)
+# depth cuts made to fit the later phases in the script's time (PERF.md
+# section 4): the in-memory and broker legs run 2 of the cell's 4 rounds,
+# the durable and replicated legs 2 of its 8 edits per writer (each of
+# their messages costs several fsyncs and renames)
 PART_ROUNDS = 2
-DURABLE_EDITS = 4
+DURABLE_EDITS = 2
 REPL_FOLLOWERS = 2  # leader + 2 followers, quorum 2 of 3
 ROUND_STEP_S = 0.05  # the injected clocks move this much per round (< lease TTL)
 FSYNC_PROBES = 400
@@ -6446,6 +6461,420 @@ def phase_sanitizers(card: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# tools: recorded and fetched documents replayed through the tools into B1
+
+TOOLS_DOCS, TOOLS_CAPACITY = SERVICE_DOCS, SERVICE_CAPACITY
+TOOLS_CHECKPOINT_EVERY = 8  # replay_file's checkpoint cadence, in ops
+TOOLS_BENCH_ITERATIONS = 3  # the harness's timed sidecar rounds
+FETCH_DOCS = 16  # documents written over TCP and fetched back
+NET_STRESS_WORKERS, NET_STRESS_OPS = 3, 30  # run_net_stress's defaults
+SIDECAR_EXAMPLES = ("heat_dump", "op_trace")
+
+
+def _tools_session(api, docs: list, seed: int):
+    """The service traffic, one round: two writer Containers per
+    document on a ``LocalServer`` (manual clock), 8 edits per writer,
+    a flush per writer. Returns the server and the writers."""
+    server, factory = _timed_server(api, _SelfTimes(), seed)
+    rng = random.Random(seed)
+    writers = {}
+    for doc in docs:
+        pair = [api.Container.load(factory.create_document_service(doc),
+                                   client_id=f"{doc}-{who}")
+                for who in SERVICE_WRITERS]
+        pair[0].runtime.create_datastore("d").create_channel(
+            "sharedstring", "s")
+        pair[0].flush()
+        writers[doc] = pair
+    for doc in docs:
+        for c in writers[doc]:
+            s = _string(c)
+            for _ in range(SERVICE_EDITS):
+                _service_edit(rng, s)
+        for c in writers[doc]:
+            c.flush()
+    return server, writers
+
+
+def _live(writers: list) -> tuple:
+    """The writers' common (text, signature); raises if they differ."""
+    views = {(_string(c).get_text(), tuple(_string(c).signature()))
+             for c in writers}
+    if len(views) != 1:
+        raise AssertionError("tools: the live writers differ")
+    return views.pop()
+
+
+def _replay_checked(path, live: tuple, what: str) -> tuple:
+    """``replay_file`` with checkpoints, again in validation mode against
+    them, and ``export_file``: each equal to ``live``; returns the ops
+    the first replay replayed and its seconds."""
+    from fluidframework_tpu_torch.tools import export_file, replay_file
+
+    t = time.perf_counter()
+    container, report = replay_file(path,
+                                    checkpoint_every=TOOLS_CHECKPOINT_EVERY)
+    replay_s = time.perf_counter() - t
+    _again, valid = replay_file(path, checkpoint_every=TOOLS_CHECKPOINT_EVERY,
+                                expected_checkpoints=report.checkpoints)
+    exported = export_file(path)
+    s = _string(container)
+    if not (report.ok and valid.ok and report.checkpoints
+            and (s.get_text(), tuple(s.signature())) == live
+            and exported["content"]["d"]["s"]["text"] == live[0]
+            and exported["opsReplayed"] == report.ops_replayed):
+        raise AssertionError(f"tools: {what}'s replay, validation "
+                             f"{valid.mismatches} or export differs from "
+                             "the live writers")
+    return report.ops_replayed, replay_s
+
+
+def _serve_logs(logs: dict, capacity: int):
+    """A ``GpuMergeSidecar`` on the card with every saved log tracked and
+    ingested (channel "d"/"s"), nothing applied yet."""
+    from fluidframework_tpu_torch.service import GpuMergeSidecar
+
+    sidecar = GpuMergeSidecar(max_docs=len(logs), capacity=capacity,
+                              device="cuda")
+    for doc, msgs in logs.items():
+        sidecar.track(doc, "d", "s")
+        for msg in msgs:
+            sidecar.ingest(doc, msg)
+    return sidecar
+
+
+def _check_served_logs(sidecar, logs: dict, live: dict, what: str) -> None:
+    """Every served document's text == the live writers'; its signature
+    == the scalar replay of its log's."""
+    for doc, msgs in logs.items():
+        text, sig = _oracle(_log_stream(msgs))
+        if sidecar.text(doc, "d", "s") != live[doc][0] or text != live[doc][0]:
+            raise AssertionError(f"tools: {what} {doc}: the served text "
+                                 "differs from the live writers'")
+        if sidecar.signature(doc, "d", "s") != sig:
+            raise AssertionError(f"tools: {what} {doc}: the served signature "
+                                 "differs from the log's replay")
+    if sidecar.overflowed():
+        raise AssertionError(f"tools: {what} left an overflowed document")
+
+
+def _tools_recorded(seed: int, root: str) -> dict:
+    """The service cell's documents recorded, saved with
+    ``save_document``, replayed, validated and exported, then served from
+    the saved logs by a 1024 x 512 sidecar, and that round timed by
+    ``tools.benchmark``."""
+    import fluidframework_tpu_torch
+    from fluidframework_tpu_torch.drivers import save_document
+    from fluidframework_tpu_torch.drivers.file_driver import load_document
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.tools import (
+        BenchmarkReporter, BenchmarkType, benchmark,
+    )
+
+    t0 = time.perf_counter()
+    api = session_api(fluidframework_tpu_torch)
+    docs = [f"tools-{d}" for d in range(TOOLS_DOCS)]
+    server, writers = _tools_session(api, docs, seed)
+    live = {doc: _live(writers[doc]) for doc in docs}
+    session_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    paths = {}
+    for doc in docs:
+        paths[doc] = f"{root}/{doc}.json"
+        save_document(paths[doc], doc, server.read_ops(doc, 0))
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ops, replay_s = np.sum([_replay_checked(paths[doc], live[doc], doc)
+                            for doc in docs], axis=0)
+    passes_s = time.perf_counter() - t
+    logs = {doc: load_document(paths[doc]).read_ops(0) for doc in docs}
+    with _held_scan_dispatches() as held:
+        cuda_merge.LAUNCHES = 0
+        t = time.perf_counter()
+        sidecar = _serve_logs(logs, TOOLS_CAPACITY)
+        applied = sidecar.apply()
+        sidecar.sync()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t
+        served_launches = cuda_merge.LAUNCHES
+        reporter = BenchmarkReporter()
+        result = reporter.add(benchmark(
+            f"sidecar round: {TOOLS_DOCS} replayed docs x {TOOLS_CAPACITY}, "
+            "apply + sync", lambda sc: (sc.apply(), sc.sync()),
+            setup=lambda: _serve_logs(logs, TOOLS_CAPACITY),
+            benchmark_type=BenchmarkType.MEASUREMENT,
+            min_iterations=TOOLS_BENCH_ITERATIONS, min_time_s=0.0, warmup=1))
+        torch.cuda.synchronize()
+        bench_launches = cuda_merge.LAUNCHES - served_launches
+    _check_served_logs(sidecar, logs, live, "recorded")
+    if served_launches <= 0 or bench_launches <= result.iterations \
+            or not held:
+        raise AssertionError(f"tools: B1 launched {served_launches} / "
+                             f"{bench_launches} times serving / timing the "
+                             "replayed documents")
+    err = _check_held(held, "tools (recorded)")
+    for line in reporter.render_table().splitlines():
+        log(f"  tools harness: {line}")
+    log(f"  tools harness json: {reporter.render_json()}")
+    return {"docs": len(docs), "edits": len(docs) * len(SERVICE_WRITERS)
+            * SERVICE_EDITS, "ops": ops, "applied": applied,
+            "session_s": session_s, "save_s": save_s, "replay_s": replay_s,
+            "passes_s": passes_s,
+            "serve_s": serve_s, "result": result,
+            "shape": [(tb.docs, tb.capacity, b.kind.shape[-1])
+                      for tb, b, _ in held.values()],
+            "launches": served_launches + bench_launches,
+            "served_launches": served_launches,
+            "bench_launches": bench_launches, "max_abs_err": err,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _tools_fetched(seed: int, root: str) -> dict:
+    """``FETCH_DOCS`` documents written by two socket writers each to an
+    in-process ``AlfredServer`` (op_trace's ``start_server`` shape),
+    plus one whose writer summarizes; each fetched with ``fetch_tool``
+    (ops == the orderer's log, summary == the server's latest). The
+    ``FETCH_DOCS`` are replayed and served by a ``FETCH_DOCS`` x 512
+    sidecar on the card. The summarized one is not replayed: its file
+    starts after the summarize op, which the summary does not cover, so
+    a replay breaks in both packages (a fault of the reference,
+    ROADMAP.md section C)."""
+    from fluidframework_tpu_torch.drivers.file_driver import load_document
+    from fluidframework_tpu_torch.drivers.socket_driver import (
+        SocketDocumentService,
+    )
+    from fluidframework_tpu_torch.loader import Container
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.protocol.serialization import (
+        encode_contents, message_to_json,
+    )
+    from fluidframework_tpu_torch.service import LocalServer
+    from fluidframework_tpu_torch.service.ingress import AlfredServer
+    from fluidframework_tpu_torch.tools.fetch_tool import fetch
+
+    t0 = time.perf_counter()
+    rng = random.Random(seed)
+    tick = {"t": 2_000_000.0 + seed}
+
+    def clock():
+        tick["t"] += 0.001
+        return tick["t"]
+
+    loop = _Loop()
+    alfred = AlfredServer(LocalServer(clock=clock))
+    services = []
+    try:
+        loop.run(alfred.start())
+        docs = [f"fetch-{d}" for d in range(FETCH_DOCS)]
+        summarized = "fetch-summarized"
+        writers = {}
+        for doc in docs + [summarized]:
+            pair = []
+            for who in SERVICE_WRITERS:
+                svc = SocketDocumentService("127.0.0.1", alfred.port, doc)
+                services.append(svc)
+                with svc.lock:
+                    c = Container.load(svc, client_id=f"{doc}-{who}")
+                    if not pair:
+                        c.runtime.create_datastore("d").create_channel(
+                            "sharedstring", "s")
+                        c.flush()
+                pair.append((svc, c))
+                _until(lambda: "d" in c.runtime.datastores
+                       and c.runtime.pending.count == 0, f"{doc} attach")
+            writers[doc] = pair
+        for doc, pair in writers.items():
+            for svc, c in pair:
+                with svc.lock:
+                    for _ in range(SERVICE_EDITS):
+                        _service_edit(rng, _string(c))
+                    c.flush()
+
+        def quiet(pair):
+            with pair[0][0].lock, pair[1][0].lock:
+                return all(c.runtime.pending.count == 0 for _s, c in pair) \
+                    and len({_string(c).get_text() for _s, c in pair}) == 1
+
+        for doc, pair in writers.items():
+            _until(lambda: quiet(pair), f"{doc} converged")
+        acks = []
+        svc, c = writers[summarized][0]
+        with svc.lock:
+            c.on("summaryAck", acks.append)
+            c.summarize()
+        _until(lambda: acks and quiet(writers[summarized]),
+               "the summary's ack")
+        live = {}
+        for doc, pair in writers.items():
+            with pair[0][0].lock, pair[1][0].lock:
+                live[doc] = _live([c for _s, c in pair])
+        session_s = time.perf_counter() - t0
+        t = time.perf_counter()
+        paths, fetched_ops = {}, 0
+        for doc in docs + [summarized]:
+            paths[doc] = f"{root}/{doc}.json"
+            report = fetch("127.0.0.1", alfred.port, doc, paths[doc])
+            fetched_ops += report["ops"]
+        fetch_s = time.perf_counter() - t
+        for doc in docs + [summarized]:
+            blob = json.load(open(paths[doc], encoding="utf-8"))
+            summary = alfred.local.latest_summary(doc)
+            from_seq = summary.sequence_number if summary else 0
+            want = [message_to_json(m)
+                    for m in alfred.local.read_ops(doc, from_seq)]
+            want_summary = summary and {
+                "sequenceNumber": summary.sequence_number,
+                "tree": encode_contents(summary.summary)}
+            if blob["messages"] != json.loads(json.dumps(want)) or \
+                    blob["summary"] != json.loads(json.dumps(want_summary)):
+                raise AssertionError(f"tools: fetched {doc} differs from "
+                                     "the server's log or summary")
+            if (summary is None) != (doc != summarized):
+                raise AssertionError(f"tools: {doc}'s summary is "
+                                     f"{summary}")
+        ops, replay_s = np.sum([_replay_checked(paths[doc], live[doc], doc)
+                                for doc in docs], axis=0)
+    finally:
+        for svc in services:
+            svc.close()
+        loop.run(alfred.stop())
+        loop.close()
+    logs = {doc: load_document(paths[doc]).read_ops(0) for doc in docs}
+    with _held_scan_dispatches() as held:
+        cuda_merge.LAUNCHES = 0
+        sidecar = _serve_logs(logs, TOOLS_CAPACITY)
+        sidecar.apply()
+        sidecar.sync()
+        torch.cuda.synchronize()
+        launches = cuda_merge.LAUNCHES
+    _check_served_logs(sidecar, logs, live, "fetched")
+    if launches <= 0 or not held:
+        raise AssertionError(f"tools: B1 launched {launches} times serving "
+                             "the fetched documents")
+    err = _check_held(held, "tools (fetched)")
+    return {"docs": len(docs), "ops": ops, "fetched_ops": fetched_ops,
+            "shape": [(tb.docs, tb.capacity, b.kind.shape[-1])
+                      for tb, b, _ in held.values()],
+            "summary_seq":
+                alfred.local.latest_summary(summarized).sequence_number,
+            "session_s": session_s, "fetch_s": fetch_s,
+            "replay_s": replay_s, "launches": launches, "max_abs_err": err,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _run_example(name: str) -> tuple:
+    """``python -m fluidframework_tpu_torch.examples.<name> --device
+    cuda`` in this process (``runpy``), its standard output captured;
+    returns (output, B1 launches). Raises unless it exits 0 and prints
+    ``OK``."""
+    import io
+    import runpy
+
+    from fluidframework_tpu_torch.ops import cuda_merge
+
+    module = f"fluidframework_tpu_torch.examples.{name}"
+    out, argv = io.StringIO(), sys.argv
+    cuda_merge.LAUNCHES = 0
+    sys.argv = [module, "--device", "cuda"]
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module(module, run_name="__main__")
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    text = out.getvalue()
+    if code not in (0, None) or "OK" not in text:
+        raise AssertionError(f"tools: example {name} exited {code}:\n"
+                             f"{text[-2000:]}")
+    return text, cuda_merge.LAUNCHES
+
+
+def phase_tools(card: str, seed: int) -> dict:
+    """The tools on the card's path: the service cell's documents
+    recorded and replayed through ``replay_tool`` / ``fluid_runner`` into
+    ``GpuMergeSidecar`` (the round timed by ``tools.benchmark``),
+    documents fetched over TCP with ``fetch_tool`` and served the same
+    way, one ``run_net_stress`` at its defaults, and the two examples
+    that build a merge sidecar run on the card."""
+    import tempfile
+
+    from fluidframework_tpu_torch.tools.net_stress import run_net_stress
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tools-") as root:
+        rec = _tools_recorded(seed, root)
+        fet = _tools_fetched(seed, root)
+    t = time.perf_counter()
+    stress = run_net_stress(n_workers=NET_STRESS_WORKERS, n_ops=NET_STRESS_OPS,
+                            seed=seed)
+    stress_s = time.perf_counter() - t
+    lengths = {w["length"] for w in stress["workers"]}
+    if len({w["text_sha"] for w in stress["workers"]}) != 1 or \
+            lengths != {stress["replay_length"]}:
+        raise AssertionError(f"tools: net_stress did not converge: {stress}")
+    examples = {}
+    for name in SIDECAR_EXAMPLES:
+        t = time.perf_counter()
+        text, launches = _run_example(name)
+        examples[name] = (launches, time.perf_counter() - t)
+        if launches <= 0:
+            raise AssertionError(f"tools: {name} launched B1 {launches} "
+                                 "times")
+        if name == "op_trace" and "merged with sidecar dispatch hops" \
+                not in text:
+            raise AssertionError("tools: op_trace found no sidecar hops")
+    wall = time.perf_counter() - t0
+    result = rec["result"]
+    launches = rec["launches"] + fet["launches"] + sum(
+        n for n, _s in examples.values())
+    log(f"tools ({card}): recorded: {rec['docs']} docs x "
+        f"{len(SERVICE_WRITERS)} writers x {SERVICE_EDITS} edits "
+        f"({rec['edits']} edits) through the port's LocalServer, saved with "
+        f"save_document, each replayed with replay_file(checkpoint_every="
+        f"{TOOLS_CHECKPOINT_EVERY}), again in validation mode (no mismatch) "
+        f"and exported with export_file: {int(rec['ops'])} ops replayed at "
+        f"{rec['ops'] / rec['replay_s']:.1f} ops/s in the checkpointed "
+        f"replays (session {rec['session_s']:.3f} s, save "
+        f"{rec['save_s']:.3f} s, replay + validate + export "
+        f"{rec['passes_s']:.3f} s); served from the saved logs by "
+        f"GpuMergeSidecar {TOOLS_DOCS} x {TOOLS_CAPACITY} on cuda "
+        f"({rec['applied']} ops applied in {rec['serve_s']:.3f} s, B1 "
+        f"{rec['served_launches']}); tools.benchmark of that round "
+        f"(setup: a fresh sidecar with the logs ingested; body: apply + "
+        f"sync): {result.iterations} iterations, p50 "
+        f"{result.p50_s * 1e3:.3f} ms, p95 {result.p95_s * 1e3:.3f} ms, "
+        f"mean {result.mean_s * 1e3:.3f} ms, B1 {rec['bench_launches']} "
+        f"(warmup included); leg wall {rec['wall_s']:.3f} s; fetched: "
+        f"{fet['docs']} docs x {len(SERVICE_WRITERS)} socket writers x "
+        f"{SERVICE_EDITS} edits to an in-process AlfredServer, plus one "
+        f"summarized at seq {fet['summary_seq']}, each fetched with "
+        f"fetch_tool.fetch ({fet['fetched_ops']} ops in "
+        f"{fet['fetch_s']:.3f} s; ops == the server's log, summary == its "
+        f"latest), the {fet['docs']} unsummarized replayed, validated and "
+        f"exported ({int(fet['ops'])} ops at "
+        f"{fet['ops'] / fet['replay_s']:.1f} ops/s in the checkpointed "
+        f"replays), served by "
+        f"GpuMergeSidecar {fet['docs']} x {TOOLS_CAPACITY} on cuda (B1 "
+        f"{fet['launches']}); leg wall {fet['wall_s']:.3f} s; net_stress: "
+        f"{NET_STRESS_WORKERS} worker processes x {NET_STRESS_OPS} ops "
+        f"against python -m fluidframework_tpu_torch.service converged "
+        f"at length {stress['replay_length']} == the op log's replay, "
+        f"{stress_s:.3f} s; examples on cuda: "
+        + ", ".join(f"{name} B1 {n}, {s:.3f} s"
+                    for name, (n, s) in examples.items())
+        + f" (OK each); every replay, export and served text == the live "
+        f"writers', every served signature == its log's scalar replay; the "
+        f"first dispatch of each leg ({rec['shape'] + fet['shape']} docs x "
+        f"slots x W) == plain; "
+        f"B1 launches {launches}; phase wall {wall:.3f} s")
+    return {"launches": launches,
+            "max_abs_err": max(rec["max_abs_err"], fet["max_abs_err"])}
+
+
+# ----------------------------------------------------------------------
 # times at the main path's shape
 
 def _time_ms(fn, reps: int, launches: int = 1) -> list:
@@ -6633,6 +7062,8 @@ def main() -> int:
         mark("chaos")
         sanitizer_rec = phase_sanitizers(smi)
         mark("sanitizers")
+        tools_rec = phase_tools(smi, args.seed)
+        mark("tools")
         time_rec = phase_time(args.seed)
         mark("times")
         log("phase walls: " + ", ".join(
@@ -6646,7 +7077,7 @@ def main() -> int:
                     partitioned_rec["max_abs_err"],
                     replicated_rec["max_abs_err"],
                     config5_rec["max_abs_err"], chaos_rec["max_abs_err"],
-                    sanitizer_rec["max_abs_err"])
+                    sanitizer_rec["max_abs_err"], tools_rec["max_abs_err"])
         paths = {"main path": main_rec["launches"],
                  "fuzz": fuzz_rec["launches"],
                  "config10": pool_rec["config10_launches"],
@@ -6663,7 +7094,8 @@ def main() -> int:
                  "replicated": replicated_rec["launches"],
                  "config5": config5_rec["launches"],
                  "chaos": chaos_rec["launches"],
-                 "sanitizers": sanitizer_rec["launches"]}
+                 "sanitizers": sanitizer_rec["launches"],
+                 "tools": tools_rec["launches"]}
     except Exception:  # noqa: BLE001 - report any failed phase, exit 1
         traceback.print_exc()
         log("FAIL")

@@ -193,15 +193,10 @@ WALL_CLOCK_SINKS: dict[tuple[str, str], str] = {
         "the native replay baseline measures wall time by definition",
 }
 
-# Entries of the registries above that name reference tools the port
-# has not copied yet (ROADMAP.md queue A: tools and examples). They
-# stay so that the tools' clock reads are sinks the day they land; the
-# staleness check skips them until then, and a test pins the set, so
-# the slice that copies the tools empties it.
-AWAITING_PORT = frozenset({
-    ("tools/benchmark.py", "*"),
-    ("tools/net_stress.py", "*"),
-})
+# Entries of the registries above that name reference code the port
+# has not copied yet; the staleness check skips them. Empty: every
+# entry names code of the port, and a test pins the set.
+AWAITING_PORT: frozenset = frozenset()
 
 # Path components where the unseeded-rng / iteration-order-leak /
 # hash-order-dependence rules apply: the deterministic planes. obs/

@@ -580,6 +580,9 @@ class GpuMergeSidecar:
         # in-flight round (trace_ops bookkeeping; cleared every round)
         self._round_msgs: list[SequencedMessage] = []
         self._inflight_msgs: list[SequencedMessage] = []
+        # the last settled round's messages, their settle hop stamped
+        # (an op's dispatch hops are read from here)
+        self.last_settled_msgs: list[SequencedMessage] = []
         # the dispatch loop's last rounds, host-side events only
         self.flight = FlightRecorder(256, name="sidecar")
         self.last_flight_dump: Optional[str] = None
@@ -1042,6 +1045,7 @@ class GpuMergeSidecar:
             for m in self._inflight_msgs:
                 trace_stamp(m.traces, "sidecar", "settle",
                             timestamp=settle_t)
+            self.last_settled_msgs = self._inflight_msgs
             self._inflight_msgs = []
         if overflowed:
             _M_RECOVER.inc()

@@ -151,12 +151,24 @@ def test_an_unregistered_clock_read_in_the_sidecar_is_flagged(tmp_path):
 
 
 def test_the_registry_set_that_waits_for_the_tools():
-    """The one named exception to "every entry names code of the
-    port": the reference tools the port has not copied yet. The slice
-    that copies them empties this set."""
-    assert determinism.AWAITING_PORT == {
-        ("tools/benchmark.py", "*"), ("tools/net_stress.py", "*")}
-    assert determinism.AWAITING_PORT <= set(determinism.WALL_CLOCK_SINKS)
+    """No registry entry waits for a module of the reference: the tools
+    are copied, so the tools' clock sinks resolve like every other
+    entry (the test below)."""
+    assert determinism.AWAITING_PORT == frozenset()
+    assert {("tools/benchmark.py", "*"), ("tools/net_stress.py", "*")} \
+        <= set(determinism.WALL_CLOCK_SINKS)
+
+
+def test_the_layer_map_declares_the_examples(tree):
+    """The examples are a subpackage of the port (the reference keeps
+    them outside its package): they import the framework, which the
+    tools row lacks, and no subpackage imports them."""
+    files, _graph = tree
+    assert layercheck.ALLOWED["examples"] >= {"framework", "tools",
+                                              "loader", "drivers"}
+    assert not any("examples" in deps for row, deps
+                   in layercheck.ALLOWED.items())
+    assert sum("/examples/" in f.relpath for f in files) == 16
 
 
 def test_every_registry_entry_names_code_of_the_port(tree):

@@ -4,6 +4,7 @@ entry points refuse to run quietly on the CPU."""
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -215,6 +216,22 @@ ANALYSIS_MODULES = (
     "fluidframework_tpu_torch.testing.sanitize_plugin",
 )
 
+# the tools and the examples (the reference keeps its examples outside
+# its package; the port's are a subpackage), named for the same reason
+TOOLS_MODULES = (
+    "fluidframework_tpu_torch.tools",
+    "fluidframework_tpu_torch.tools.benchmark",
+    "fluidframework_tpu_torch.tools.replay_tool",
+    "fluidframework_tpu_torch.tools.fluid_runner",
+    "fluidframework_tpu_torch.tools.fetch_tool",
+    "fluidframework_tpu_torch.tools.net_stress",
+    "fluidframework_tpu_torch.examples",
+) + tuple(f"fluidframework_tpu_torch.examples.{name}" for name in (
+    "collaborative_text", "todo_app", "table_grid", "tree_outline",
+    "property_cad", "network_chat", "ink_whiteboard", "richtext_editor",
+    "webflow_editor", "secure_multitenant", "fleet_timeline",
+    "netsplit_timeline", "slo_report", "heat_dump", "op_trace"))
+
 _CHILD = r"""
 import importlib, json, pkgutil, sys
 import fluidframework_tpu_torch as port
@@ -250,7 +267,8 @@ def test_port_import_loads_no_jax():
                + MATRIX_MODULES + OBS_MODULES + SERVICE_MODULES
                + INGRESS_MODULES + DDS_MODULES + FRAMEWORK_MODULES
                + ORDERING_MODULES + NATIVE_MODULES
-               + ANALYSIS_MODULES[1:]) <= set(out["names"])
+               + ANALYSIS_MODULES[1:] + TOOLS_MODULES[1:]) \
+        <= set(out["names"])
     assert out["bad"] == []
 
 
@@ -263,7 +281,8 @@ def test_source_scan_covers_the_route_modules():
     for name in (ROUTE_MODULES + TREE_MODULES + POOL_MODULES
                  + MATRIX_MODULES + OBS_MODULES + SERVICE_MODULES
                  + INGRESS_MODULES + DDS_MODULES + FRAMEWORK_MODULES
-                 + ORDERING_MODULES + NATIVE_MODULES + ANALYSIS_MODULES):
+                 + ORDERING_MODULES + NATIVE_MODULES + ANALYSIS_MODULES
+                 + TOOLS_MODULES):
         path = REPO.joinpath(*name.split(".")).with_suffix(".py")
         if not path.exists():  # a package
             path = path.with_suffix("") / "__init__.py"
@@ -284,6 +303,23 @@ def test_source_imports_neither_jax_nor_reference(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "fluidframework_tpu"), (
                 f"{path.name}:{node.lineno} imports {mod}")
+
+
+def test_no_string_names_a_module_of_the_reference():
+    """A command a tool or an example spawns (``-m <module>``, a ``-c``
+    program) is a string the import scan cannot see: no string of the
+    port names a module of the JAX package. The one exception is the
+    OTLP scope name, kept equal to the reference's on purpose."""
+    hits = []
+    for path in _sources():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Constant) and isinstance(
+                    node.value, str) and re.search(
+                    r"\bfluidframework_tpu\.", node.value):
+                hits.append((path.relative_to(REPO).as_posix(),
+                             node.value))
+    assert hits == [("fluidframework_tpu_torch/obs/spans.py",
+                     "fluidframework_tpu.obs")]
 
 
 def test_ops_package_exports_the_route_entry_points():

@@ -5,12 +5,8 @@
 source, imports rewired; each module's own ``server`` fixture is built
 from the same source, so from the package under test).
 
-Left out, with the module they wait for (the port does not have it yet):
-
-- ``test_net_service.py::test_multi_process_stress_converges``:
-  ``tools.net_stress``;
-- ``test_net_service.py::test_multi_process_stress_converges_partitioned``:
-  ``tools.net_stress``.
+Nothing is left out: the two ``net_stress`` cases run the port's
+``tools.net_stress``, whose server and worker processes run the port.
 """
 import pytest
 
@@ -22,13 +18,15 @@ from test_torch_service_layers import (
 )
 
 MIRRORED = ("test_net_service", "test_caching_driver")
-LEFT_OUT = {
-    "test_net_service": {
-        "test_multi_process_stress_converges": "tools.net_stress",
-        "test_multi_process_stress_converges_partitioned":
-            "tools.net_stress",
-    },
-}
+LEFT_OUT: dict = {}
+
+
+def test_nothing_is_left_out():
+    cases = mirror_cases(MIRRORED, LEFT_OUT)
+    names = {n for _m, n, _p in (getattr(c, "values", c) for c in cases)}
+    assert {"test_multi_process_stress_converges",
+            "test_multi_process_stress_converges_partitioned"} <= names
+    assert not LEFT_OUT
 
 
 @pytest.mark.parametrize("package", PACKAGES)
