@@ -6278,12 +6278,16 @@ SANITIZER_SERVE = dict(n_docs=8, readers_per_doc=2, duration_s=1.0,
 
 def _static_side() -> dict:
     """One combined run of the port's families over its default roots
-    (every family clean, the allowlist empty), then the three surfaces
-    the sanitizers are held to: concheck's lock graph by creation site,
-    detcheck's findings, wirecheck's extracted emits."""
+    (every family clean, the allowlist empty), then the surfaces the
+    sanitizers are held to: concheck's lock graph by creation site,
+    detcheck's findings, wirecheck's extracted emits, and shapecheck's
+    device roots reachable from the dispatch loops and from the
+    prewarms; with shapecheck's share of the run timed on its own over
+    one built call graph."""
     from fluidframework_tpu_torch.analysis import (
-        concurrency, core, wirecheck,
+        concurrency, core, shapecheck, wirecheck,
     )
+    from fluidframework_tpu_torch.analysis.callgraph import build_callgraph
 
     t = time.perf_counter()
     findings = core.run_analysis()
@@ -6298,11 +6302,160 @@ def _static_side() -> dict:
     files = core.walk_python_files(core.DEFAULT_ROOTS)
     lock_edges = concurrency.build_analysis(files).lock_edges_by_site()
     ext, _facts = wirecheck.extract(files)
+    surfaces_s = time.perf_counter() - t
+    graph = build_callgraph(files)
+    t = time.perf_counter()
+    by_path = {f.relpath: f for f in files}
+    shape_findings = [f for f in shapecheck.check(files, graph)
+                      if not by_path[f.path].suppressed(f.rule, f.line)]
+    shape_s = time.perf_counter() - t
+    if shape_findings:
+        raise AssertionError("sanitizers: shapecheck is not clean: " + "; "
+                             .join(f.format() for f in shape_findings))
+    dispatched, warmed = shapecheck.prewarm_reach(files, graph)
+    if not dispatched <= warmed:
+        raise AssertionError(f"sanitizers: shapecheck finds the roots "
+                             f"{sorted(dispatched - warmed)} unwarmed")
     return {"run_s": run_s, "families": len(core.FAMILIES),
-            "files": len(files), "surfaces_s": time.perf_counter() - t,
+            "files": len(files), "surfaces_s": surfaces_s,
+            "shape_s": shape_s, "warmed": warmed,
             "lock_edges": lock_edges, "emits": ext.emitted_fields(),
             "det_sites": {(f.path, f.line) for f in findings
                           if f.rule in core.FAMILY_RULES["detcheck"]}}
+
+
+SANITIZER_PREWARM = dict(docs=1024, capacity=64, max_capacity=512)
+SANITIZER_PREWARM_STREAMS = (32, 120, 3, 5600)  # bench_streams' arguments
+SANITIZER_PREWARM_ROUND = 16  # messages per document per round
+
+
+def _walk_then_serve(sidecar, serve, warmed: set, bounds: dict,
+                     what: str) -> tuple:
+    """``sidecar.prewarm()`` under jitsan, then ``serve()`` (the rounds);
+    raises unless every signature either reached is within ``bounds``,
+    the rounds reach no signature the walk did not, and every root they
+    launch is one shapecheck finds a prewarm walking. Returns the walk's
+    seconds, its signatures per root and what ``serve`` returned."""
+    from fluidframework_tpu_torch.testing import jitsan
+
+    live = sidecar._table
+    jitsan.reset()
+    seconds = sidecar.prewarm()
+    walked = jitsan.launch_signatures()
+    if sidecar._table is not live:
+        raise AssertionError(f"sanitizers: {what} prewarm replaced the "
+                             "live table")
+    jitsan.reset()
+    out = serve()
+    seen = jitsan.launch_signatures()
+    over = {root: (len(walked[root] | seen[root]), bound)
+            for root, bound in bounds.items()
+            if len(walked[root] | seen[root]) > bound}
+    missed = {root: sorted(sigs - walked[root])
+              for root, sigs in seen.items() if sigs - walked[root]}
+    cold = sorted(root for root, sigs in seen.items()
+                  if sigs and root not in warmed)
+    if over or missed or cold or not any(seen.values()):
+        raise AssertionError(
+            f"sanitizers: {what}: signatures over the ladder bounds {over}, "
+            f"reached after prewarm but not walked {missed}, roots "
+            f"shapecheck finds no prewarm walking {cold}")
+    return seconds, {r: len(v) for r, v in walked.items() if v}, out
+
+
+def _prewarm_merge(warmed: set) -> dict:
+    """A GpuMergeSidecar on the card walked by ``prewarm`` (the window
+    kernel's build, then every rung x bucket), then bench's corpus in
+    rounds that grow the slab; the first dispatch at each slab ==
+    plain, the streams == the oracle."""
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.ops.bucket_ladder import ladder_bounds
+    from fluidframework_tpu_torch.service import GpuMergeSidecar
+
+    cfg = SANITIZER_PREWARM
+    raw = bench_streams(*SANITIZER_PREWARM_STREAMS)
+    wrapped = [_wrap(st) for st in raw]
+    sidecar = GpuMergeSidecar(max_docs=cfg["docs"],
+                              capacity=cfg["capacity"],
+                              max_capacity=cfg["max_capacity"],
+                              executor="scan", device="cuda")
+    doc_ids = [f"san-doc-{d}" for d in range(cfg["docs"])]
+    for doc in doc_ids:
+        sidecar.track(doc, "d", "s")
+    step = SANITIZER_PREWARM_ROUND
+    longest = max(len(w) for w in wrapped)
+
+    def serve():
+        walls = []
+        cuda_merge.LAUNCHES = 0
+        with _held_scan_dispatches() as held:
+            for lo in range(0, longest, step):
+                for d, doc in enumerate(doc_ids):
+                    for msg in wrapped[d % len(raw)][lo:lo + step]:
+                        sidecar.ingest(doc, msg)
+                t = time.perf_counter()
+                sidecar.apply()
+                sidecar.sync()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+        return walls, cuda_merge.LAUNCHES, held
+
+    bounds = ladder_bounds(16, sidecar.ladder.max_bucket, cfg["capacity"],
+                           cfg["max_capacity"])
+    seconds, walked, (walls, launches, held) = _walk_then_serve(
+        sidecar, serve, warmed, bounds, "merge sidecar")
+    if sidecar.grow_count < 1 or launches < 1 or not held:
+        raise AssertionError(f"sanitizers: the prewarmed merge sidecar grew "
+                             f"{sidecar.grow_count} times, launched B1 "
+                             f"{launches} times")
+    err = _check_held(held, "sanitizers' prewarmed merge sidecar")
+    _check_docs(sidecar, list(zip(doc_ids, raw)))
+    return {"seconds": seconds, "walked": walked, "walls": walls,
+            "launches": launches, "max_abs_err": err,
+            "grows": sidecar.grow_count, "capacity": sidecar.capacity,
+            "slabs": sorted(held)}
+
+
+def _prewarm_tree(warmed: set, recorded: list, route: str) -> dict:
+    """A TreeSidecar at the tree phase's shape (1024 documents, capacity
+    128 -> 256, ring 16) walked by ``prewarm``, then the recorded corpus
+    in the tree phase's rounds; every document == its oracle
+    (``_check_tree_run``)."""
+    from fluidframework_tpu_torch import convert
+    from fluidframework_tpu_torch.ops.bucket_ladder import tree_ladder_bounds
+    from fluidframework_tpu_torch.service import TreeSidecar
+
+    sidecar = TreeSidecar(max_docs=TREE_DOCS, capacity=TREE_CAPACITY,
+                          max_capacity=2 * TREE_CAPACITY, executor=route,
+                          device="cuda")
+    doc_ids = [f"tree-{d}" for d in range(TREE_DOCS)]
+    for doc in doc_ids:
+        sidecar.track(doc, "d", "t")
+    longest = max(len(st) for _, st in recorded)
+    bounds = [0] + list(range(TREE_PREFIX, longest, TREE_ROUND)) + [longest]
+
+    def serve():
+        walls = []
+        for start, stop in zip(bounds, bounds[1:]):
+            for d, doc in enumerate(doc_ids):
+                for msg in recorded[d % len(recorded)][1][start:stop]:
+                    sidecar.ingest(doc, msg)
+            t = time.perf_counter()
+            sidecar.apply()
+            sidecar.sync()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        return walls
+
+    # the walk covers both routes: a route-flipped sidecar is warm too
+    limits = tree_ladder_bounds(TREE_CAPACITY, 2 * TREE_CAPACITY)
+    limits["tree_window"] *= len(TREE_ROUTES)
+    seconds, walked, walls = _walk_then_serve(
+        sidecar, serve, warmed, limits, f"tree sidecar ({route})")
+    rec = {"doc_ids": doc_ids,
+           "table": convert.tree_table_to_numpy(sidecar._table)}
+    _check_tree_run(sidecar, rec, recorded, route)
+    return {"seconds": seconds, "walked": walked, "walls": walls}
 
 
 def _socket_reentry() -> None:
@@ -6334,7 +6487,7 @@ def _socket_reentry() -> None:
         loop.close()
 
 
-def phase_sanitizers(card: str) -> dict:
+def phase_sanitizers(card: str, recorded: list) -> dict:
     """fluidsan, detsan, wiresan and jitsan installed together (the
     reference conftest's ``FFTPU_SANITIZE=1`` set, failsan riding the
     chaos phase's storms) over the chaos sweep with faults and
@@ -6345,7 +6498,11 @@ def phase_sanitizers(card: str) -> dict:
     ``WALL_CLOCK_SINKS``, frame fields within ``WIRE_SCHEMA`` and
     wirecheck's emits. The socket driver's lock-nesting scenario runs
     under them too, so the lock-edge check has edges to hold. The
-    first sidecar dispatch at each slab is held against plain."""
+    first sidecar dispatch at each slab is held against plain. Then,
+    under jitsan alone, each sidecar's ``prewarm`` on the card and its
+    own traffic after it (``_prewarm_merge``, ``_prewarm_tree``): no
+    signature beyond the ladder bounds, none the walk missed, and no
+    root shapecheck finds unwarmed."""
     from fluidframework_tpu_torch.analysis import determinism
     from fluidframework_tpu_torch.ops import cuda_merge
     from fluidframework_tpu_torch.protocol.constants import (
@@ -6431,6 +6588,17 @@ def phase_sanitizers(card: str) -> dict:
                              f"reads {sidecar_wall}, edges {len(edges)}, "
                              f"fields {len(fields)})")
     fired = _sites([f for r in reports for f in r.fired])
+    jitsan.install()
+    try:
+        t = time.perf_counter()
+        merge = _prewarm_merge(static["warmed"])
+        merge_s = time.perf_counter() - t
+        t = time.perf_counter()
+        tree = _prewarm_tree(static["warmed"], recorded, TREE_ROUTES[0])
+        tree_s = time.perf_counter() - t
+    finally:
+        jitsan.reset()
+        jitsan.uninstall()
     wall = time.perf_counter() - t0
     log(f"sanitizers ({card}): fluidsan, detsan, wiresan and jitsan "
         f"installed over run_chaos(seed, faults=True, n_steps="
@@ -6455,9 +6623,36 @@ def phase_sanitizers(card: str) -> dict:
         f"port's {static['families']} families over "
         f"{static['files']} files {static['run_s']:.3f} s (clean, empty "
         f"allowlist) + the lock graph and wire extraction "
-        f"{static['surfaces_s']:.3f} s; sanitized run {run_s:.3f} s; "
+        f"{static['surfaces_s']:.3f} s, shapecheck's share (one built call "
+        f"graph) {static['shape_s']:.3f} s; sanitized run {run_s:.3f} s; "
         f"phase wall {wall:.3f} s")
-    return {"launches": launches, "max_abs_err": err}
+    cfg = SANITIZER_PREWARM
+    log(f"sanitizers ({card}): prewarm on cuda under jitsan: merge sidecar "
+        f"{cfg['docs']} docs, capacity {cfg['capacity']} -> max "
+        f"{cfg['max_capacity']}: walk {merge['seconds']:.3f} s (the window "
+        f"kernel's build included), signatures walked {merge['walked']}; "
+        f"{len(merge['walls'])} rounds of bench's corpus "
+        f"({SANITIZER_PREWARM_ROUND} messages per document per round, "
+        f"{merge['grows']} grows to {merge['capacity']}): first round "
+        f"{merge['walls'][0] * 1e3:.3f} ms, median steady round "
+        f"{statistics.median(merge['walls'][1:]) * 1e3:.3f} ms, B1 "
+        f"launches {merge['launches']}, the first dispatch at each slab "
+        f"{merge['slabs']} == plain, no signature beyond ladder_bounds or "
+        f"unwalked, every root launched among shapecheck's warmed "
+        f"{sorted(static['warmed'])}; {merge_s:.3f} s with the checks")
+    log(f"sanitizers ({card}): prewarm on cuda under jitsan: tree sidecar "
+        f"({TREE_ROUTES[0]}) {TREE_DOCS} docs, capacity {TREE_CAPACITY} -> "
+        f"{2 * TREE_CAPACITY}, ring 16: walk {tree['seconds']:.3f} s "
+        f"(both routes), signatures walked {tree['walked']}; "
+        f"{len(tree['walls'])} rounds of the recorded corpus: first round "
+        f"after prewarm {tree['walls'][0] * 1e3:.3f} ms (apply + sync), "
+        f"median steady round "
+        f"{statistics.median(tree['walls'][1:]) * 1e3:.3f} ms (rounds "
+        f"{[round(w * 1e3, 3) for w in tree['walls']]} ms); no signature "
+        f"beyond tree_ladder_bounds or unwalked; every document == its "
+        f"EditManager replay; {tree_s:.3f} s with the checks")
+    return {"launches": launches, "prewarm_launches": merge["launches"],
+            "max_abs_err": max(err, merge["max_abs_err"])}
 
 
 # ----------------------------------------------------------------------
@@ -7060,7 +7255,7 @@ def main() -> int:
         mark("config5")
         chaos_rec = phase_chaos(smi)
         mark("chaos")
-        sanitizer_rec = phase_sanitizers(smi)
+        sanitizer_rec = phase_sanitizers(smi, recorded)
         mark("sanitizers")
         tools_rec = phase_tools(smi, args.seed)
         mark("tools")
@@ -7095,6 +7290,8 @@ def main() -> int:
                  "config5": config5_rec["launches"],
                  "chaos": chaos_rec["launches"],
                  "sanitizers": sanitizer_rec["launches"],
+                 "prewarmed sanitized rounds":
+                     sanitizer_rec["prewarm_launches"],
                  "tools": tools_rec["launches"]}
     except Exception:  # noqa: BLE001 - report any failed phase, exit 1
         traceback.print_exc()

@@ -22,11 +22,16 @@ CLI (``python -m fluidframework_tpu_torch.analysis``):
   deterministic planes (runtime half: testing/detsan.py).
 - **wirecheck** — frame encoder/decoder drift against ``WIRE_SCHEMA``
   (runtime half: testing/wiresan.py).
+- **shapecheck** — donated-table reuse, launch shapes that do not come
+  from the bucket ladder, 64-bit widens in device-reachable code, literal
+  shape mismatches, and device roots the dispatch loops reach that no
+  prewarm walks (runtime half: testing/jitsan.py).
 - **failcheck** — silent exception handlers on the serving planes
   (runtime half: testing/failsan.py).
 
-The reference's shapecheck has no static counterpart yet; its runtime
-half is testing/jitsan.py. Findings are ``path:line rule-id message``,
+The reference's jaxhazards has no copy: its dispatch-loop rule is
+synccheck, and its ``jit-*`` rules guard a traced program the port does
+not have. Findings are ``path:line rule-id message``,
 suppressible per line with ``# fluidlint: disable=<rule-id>`` and
 grandfathered through ``analysis/allowlist.txt`` (empty; capped at 10).
 """

@@ -209,13 +209,14 @@ def load_allowlist(path: str = ALLOWLIST_PATH) -> list[tuple[str, str]]:
 
 # The reference's jaxhazards family reasons about ``jax.jit``; its one
 # rule with a torch meaning, ``dispatch-loop-sync``, is the port's
-# ``synccheck`` (analysis/synccheck.py). The reference's shapecheck
-# (donation dataflow, the bucket-ladder shape source, dtype widening,
-# prewarm coverage) has no static counterpart yet: its runtime half is
-# testing/jitsan.py, and ROADMAP.md's queue A holds its static half.
+# ``synccheck`` (analysis/synccheck.py), and its four ``jit-*`` rules
+# guard a traced program the port does not have. The reference's
+# shapecheck is the port's shapecheck (analysis/shapecheck.py): the same
+# five rules over the device roots testing/jitsan.py wraps, jitsan being
+# its runtime half.
 FAMILIES = ("layercheck", "synccheck", "lockcheck", "obscheck",
-            "qoscheck", "concheck", "detcheck", "wirecheck",
-            "failcheck")
+            "qoscheck", "concheck", "shapecheck", "detcheck",
+            "wirecheck", "failcheck")
 
 # rule id -> owning family: tooling that groups ONE combined run's
 # findings per family (bench's fluidlint_findings records) reads
@@ -231,6 +232,9 @@ FAMILY_RULES = {
                  "fence-before-fanout", "unbounded-blocking-wait"),
     "concheck": ("lock-order-cycle", "async-blocking-call",
                  "await-holding-lock"),
+    "shapecheck": ("donated-buffer-reuse", "unladdered-jit-shape",
+                   "kernel-dtype-widen", "shape-mismatch",
+                   "prewarm-coverage"),
     "detcheck": ("wall-clock-unrouted", "unseeded-rng",
                  "iteration-order-leak", "hash-order-dependence"),
     "wirecheck": ("encoder-decoder-drift",
@@ -260,6 +264,7 @@ def run_analysis(roots: Iterable[str] = DEFAULT_ROOTS,
         lockcheck,
         obscheck,
         qoscheck,
+        shapecheck,
         synccheck,
         wirecheck,
     )
@@ -271,6 +276,7 @@ def run_analysis(roots: Iterable[str] = DEFAULT_ROOTS,
         "obscheck": obscheck.check,
         "qoscheck": qoscheck.check,
         "concheck": concurrency.check,
+        "shapecheck": shapecheck.check,
         "detcheck": determinism.check,
         "wirecheck": wirecheck.check,
         "failcheck": failcheck.check,
@@ -283,11 +289,12 @@ def run_analysis(roots: Iterable[str] = DEFAULT_ROOTS,
     files = walk_python_files(roots, repo_root)
     findings: list[Finding] = []
     by_path = {f.relpath: f for f in files}
-    # one shared call graph per run: concheck, detcheck, wirecheck and
-    # failcheck resolve through the same interprocedural edges (and pay
-    # for the build once); synccheck's reachability is module-local,
-    # as the reference's dispatch-loop-sync rule's is
-    GRAPH_FAMILIES = ("concheck", "detcheck", "wirecheck", "failcheck")
+    # one shared call graph per run: concheck, shapecheck, detcheck,
+    # wirecheck and failcheck resolve through the same interprocedural
+    # edges (and pay for the build once); synccheck's reachability is
+    # module-local, as the reference's dispatch-loop-sync rule's is
+    GRAPH_FAMILIES = ("concheck", "shapecheck", "detcheck", "wirecheck",
+                      "failcheck")
     shared_graph = None
     if set(GRAPH_FAMILIES) & set(families):
         from .callgraph import build_callgraph

@@ -41,6 +41,14 @@ OP_FIELDS = (
 )
 
 
+def noop_op() -> dict:
+    """One padding op (kind NOOP, every other field 0): what the
+    prewarm walks pack."""
+    op = dict.fromkeys(OP_FIELDS, 0)
+    op["kind"] = KIND_NOOP
+    return op
+
+
 @dataclass
 class DocStream:
     """One document's encoded op stream + payload table."""

@@ -717,7 +717,8 @@ def _macro_step(st: dict, ops: dict, K: int):
     # wrapped back to the int32 bit pattern
     bit = torch.ones_like(ops["client"], dtype=torch.int64) << ops[
         "client"].long()
-    bits = torch.where(rm_eff, bit[:, None, :], 0).sum(dim=-1) & 0xFFFFFFFF
+    bits = torch.where(rm_eff, bit[:, None, :], 0).sum(
+        dim=-1, dtype=torch.int64) & 0xFFFFFFFF
     bits = torch.where(bits >= 2**31, bits - 2**32, bits).to(i32)
     new_removers = r["removers"] | bits
 

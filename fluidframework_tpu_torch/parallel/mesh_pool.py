@@ -45,9 +45,11 @@ and every rebuild replaces the table.
 from __future__ import annotations
 
 import sys
+import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..convert import batch_from_numpy, program_to_device, \
     sharded_table_to_numpy
@@ -56,7 +58,12 @@ from ..obs.heat import HeatLedger
 from ..obs.trace import stamp as _trace_stamp
 from ..ops.bucket_ladder import BucketLadder
 from ..ops.event_graph import validate_executor
-from ..ops.host_bridge import coalesce_noops, pack_rows, replay_chunked
+from ..ops.host_bridge import (
+    coalesce_noops,
+    noop_op,
+    pack_rows,
+    replay_chunked,
+)
 from ..ops.merge_chunk import (
     CHUNK_K,
     apply_window_chunked,
@@ -444,13 +451,36 @@ class MeshShardedPool:
     # -- prewarm + reads -------------------------------------------------
 
     def prewarm(self) -> float:
-        """Build the window kernel the pool's CUDA shards launch (nothing
-        to do on the CPU); returns the seconds it took."""
-        if self.mesh.device_type != "cuda":
-            return 0.0
-        from ..ops.cuda_merge import prewarm
+        """Walk the pool's first-admission launch shapes before any
+        admission: row bucket 1 per shard at both windows the pool
+        dispatches (the incremental floor bucket and the replay chunk's),
+        each on a fresh table and on a dispatch's output, with the
+        compact that follows every dispatch, and on a multi-shard mesh
+        the migration's row move. On CUDA shards the window kernel is
+        built first and the walk ends in one sync per device. Wider row
+        buckets and deeper windows pay as they land: admission is rare
+        and already O(history). Returns the seconds it took."""
+        t0 = time.perf_counter()
+        if self.mesh.device_type == "cuda":
+            from ..ops.cuda_merge import prewarm as build_kernel
 
-        return prewarm()
+            build_kernel()
+        chunk = BucketLadder.replay_chunk(self.capacity)
+        out = None
+        for floor in sorted({16, chunk}):
+            arrays = pack_rows(self.n_shards, {0: [noop_op()]},
+                               bucket_floor=floor)
+            out = self._apply(ShardedTable([
+                make_table(1, self.capacity, dev) for dev in self.devices]),
+                arrays)
+            out = self._apply(out, arrays)
+        if self.n_shards > 1:
+            # identity permutation; ``out`` is consumed
+            migrate_rows(out, np.arange(self.n_shards, dtype=np.int64))
+        if self.mesh.device_type == "cuda":
+            for dev in dict.fromkeys(self.devices):
+                torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
 
     def overflowed_slots(self) -> list:
         if self._table is None:

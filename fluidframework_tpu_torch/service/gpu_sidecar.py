@@ -64,7 +64,6 @@ from ..obs.profiler import device_trace
 from ..obs.trace import stamp as trace_stamp
 from ..ops.bucket_ladder import BucketLadder
 from ..ops.host_bridge import (
-    OP_FIELDS,
     DocStream,
     coalesce_noops,
     decode_stream,
@@ -72,6 +71,7 @@ from ..ops.host_bridge import (
     extract_text,
     fetch,
     interned_signature,
+    noop_op,
     pack_rows,
     replay_chunked,
 )
@@ -407,13 +407,28 @@ class SeqShardedPool:
         return self.overflowed_slots()
 
     def prewarm(self) -> float:
-        """Build the window kernel a one-shard seq pool launches on CUDA
-        (nothing to do on the CPU); returns the seconds it took."""
-        if self.mesh.device_type != "cuda":
-            return 0.0
-        from ..ops.cuda_merge import prewarm
+        """Walk the pool's first-admission launch shapes before any
+        admission: row bucket 1 at the pool capacity, at both windows
+        the pool dispatches (the incremental floor bucket and the replay
+        chunk's), each on a fresh table and on a dispatch's output, with
+        the compact that follows every dispatch. On CUDA the window
+        kernel is built first and the walk ends in one device sync.
+        Wider row buckets and deeper windows pay as they land: admission
+        is rare and already O(history). Returns the seconds it took."""
+        t0 = time.perf_counter()
+        if self.mesh.device_type == "cuda":
+            from ..ops.cuda_merge import prewarm as build_kernel
 
-        return prewarm()
+            build_kernel()
+        chunk = BucketLadder.replay_chunk(self.capacity)
+        for floor in sorted({16, chunk}):
+            arrays = pack_rows(1, {0: [noop_op()]}, bucket_floor=floor)
+            out = self._apply(make_table(1, self.capacity, self.device),
+                              arrays)
+            self._apply(out, arrays)
+        if self.mesh.device_type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
 
     def overflowed_slots(self) -> list:
         if self._table is None:
@@ -817,8 +832,7 @@ class GpuMergeSidecar:
             from ..ops.cuda_merge import prewarm as build_kernel
 
             build_kernel()
-        noop = dict.fromkeys(OP_FIELDS, 0)
-        noop["kind"] = KIND_NOOP
+        noop = noop_op()
         head = np.zeros(self.max_docs, np.int64)
         prev = None
         for rung in BucketLadder.capacity_rungs(self.capacity,
@@ -832,6 +846,10 @@ class GpuMergeSidecar:
                 dead = (make_table(self.max_docs, rung, self.device)
                         if self.donate else None)
                 table = self._apply_program(table, program, dead)
+                if self.donate:
+                    # a grow re-applies its window with no fodder: the
+                    # route's plain form at the same shape
+                    table = self._apply_program(table, program)
                 if self.executor == "egwalker":
                     # an all-noop window is wholly critical, so the walk
                     # applies the suffix's scan at this shape itself
@@ -842,10 +860,17 @@ class GpuMergeSidecar:
                 pad_capacity(prev, rung)
             prev = table
         if self._pool is not None:
-            self._pool.prewarm()
+            self._warm_pool()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
+
+    def _warm_pool(self) -> None:
+        """Walk the pool tier's first-admission shapes
+        (``SeqShardedPool.prewarm`` / ``MeshShardedPool.prewarm``),
+        reached through the attribute-held pool: shapecheck's
+        ``PREWARM_INDIRECT`` declares both edges."""
+        self._pool.prewarm()
 
     def _compile_program(self, arrays: dict, base_head: np.ndarray) -> dict:
         """Host half of one dispatch: the packed arrays for the scan

@@ -63,11 +63,13 @@ from ..ops.tree_apply import (
     decode_tree_row,
     encode_tree_commit,
     make_tree_table,
+    noop_tree_commit,
     pack_tree_window,
     pad_tree_capacity,
     ring_safe,
     window_extent,
 )
+from ..ops.tree_atoms import ATOM_INS
 from ..protocol.messages import MessageType, SequencedMessage
 from ..protocol.tree_payload import tree_change_from_json
 from ..qos.faults import KIND_ERROR, KIND_ERROR_BURST, PLANE as _CHAOS
@@ -167,6 +169,19 @@ class _Dispatch:
     def apply(self, table: TreeTable, route: str) -> TreeTable:
         return apply_tree_window(table, self.program, route,
                                  steps=self.steps, rows=self.rows)
+
+
+def _warm_dispatch(docs: int, ladder: BucketLadder, width: int,
+                   device: torch.device) -> _Dispatch:
+    """The prewarm walks' window, for scratch tables: one commit at seq 1
+    in row 0 holding a unit insert, so the device loops run one real
+    step (the trunk-ring rebase and a forest apply of one row) at the
+    window's launch signature."""
+    warm = noop_tree_commit(width)
+    warm["kind"][0], warm["n"][0], warm["payload"][0] = ATOM_INS, 1, 0
+    warm["seq"] = 1
+    return _Dispatch(pack_tree_window(docs, {0: [warm]}, ladder,
+                                      width=width), device)
 
 
 class TreeSeqPool:
@@ -286,6 +301,17 @@ class TreeSeqPool:
             self._table.docs, pending, self.ladder, width=self.atoms))
         self.applied_upto.update(upto)
         return self.overflowed_slots()
+
+    def prewarm(self) -> None:
+        """Walk the first-admission launch signature (row bucket 1 at
+        the pool capacity, on the pool's route) on a fresh table and on
+        a dispatch's output, before any admission reaches it mid-serve.
+        Wider row buckets pay as they land: admission is rare and
+        already O(history). Enqueues work only."""
+        dispatch = _warm_dispatch(1, self.ladder, self.atoms, self.device)
+        table = make_tree_table(1, self.capacity, self.device,
+                                ring=self.ring, atoms=self.atoms)
+        dispatch.apply(dispatch.apply(table, self.executor), self.executor)
 
     def overflowed_slots(self) -> list:
         if self._table is None:
@@ -524,10 +550,40 @@ class TreeSidecar:
         self._settle()
 
     def prewarm(self, max_bucket: Optional[int] = None) -> float:
-        """Nothing to compile in the port (the device half is eager
-        torch); kept for the reference's surface. Returns the seconds
-        spent."""
-        return 0.0
+        """Walk every launch signature the tree ladder can reach, on
+        scratch tables: one window per capacity rung (``capacity`` up to
+        ``max_capacity``) on BOTH routes, on a fresh table and on a
+        dispatch's output, the pad step between rungs, then the pool
+        tier's first-admission signature (``_warm_pool``). The window
+        uploads only its real steps (``tree_apply.window_extent``), so a
+        launch signature is (route, docs, capacity) whatever the window
+        bucket: ``max_bucket`` is kept for the reference's surface. On
+        ``cuda`` the walk ends in one device sync. The live table is
+        untouched. Returns the seconds spent."""
+        t0 = time.perf_counter()
+        dispatch = _warm_dispatch(self.max_docs, self.ladder, self.width,
+                                  self.device)
+        prev = None
+        for rung in BucketLadder.capacity_rungs(self.capacity,
+                                                self.max_capacity):
+            table = make_tree_table(self.max_docs, rung, self.device,
+                                    ring=self.ring, atoms=self.width)
+            for route in TREE_EXECUTOR_ROUTES:
+                out = dispatch.apply(dispatch.apply(table, route), route)
+            if prev is not None:
+                pad_tree_capacity(prev, rung)
+            prev = out
+        if self._pool is not None:
+            self._warm_pool()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    def _warm_pool(self) -> None:
+        """Walk the pool tier's first-admission signature
+        (``TreeSeqPool.prewarm``), reached through the attribute-held
+        pool: shapecheck's ``PREWARM_INDIRECT`` declares the edge."""
+        self._pool.prewarm()
 
     def _apply_dispatch(self, table: TreeTable,
                         dispatch: _Dispatch) -> TreeTable:

@@ -3,7 +3,7 @@
 The counterpart of the reference's ``testing/jitsan.py``, with the same
 surface (``install``, ``uninstall``, ``installed``, ``reset``,
 ``trips``, ``donation_events``, ``compile_counts``,
-``publish_compiles``):
+``publish_compiles``), plus ``launch_signatures``:
 
 - **launch signatures**: eager torch compiles nothing per shape, so
   where the reference read XLA's per-root compile caches, jitsan counts
@@ -306,6 +306,15 @@ def compile_counts() -> dict[str, int]:
     ``reset()``."""
     with _LOCK:
         return {root: len(_STATE.since_reset.get(root, ()))
+                for root in ROOTS}
+
+
+def launch_signatures() -> dict[str, set]:
+    """The distinct launch signatures per root since ``install()`` /
+    ``reset()`` (what ``compile_counts`` counts): a prewarm walk's set,
+    held against the set the serving rounds after it reach."""
+    with _LOCK:
+        return {root: set(_STATE.since_reset.get(root, ()))
                 for root in ROOTS}
 
 

@@ -265,7 +265,10 @@ def test_synccheck_joins_the_combined_run(tmp_path):
     assert "synccheck" in core.FAMILIES
     assert core.FAMILY_RULES["synccheck"] == ("dispatch-loop-sync",)
     assert "jaxhazards" not in core.FAMILIES
-    assert "shapecheck" not in core.FAMILIES
+    # the reference's shapecheck is the port's, with the same rule ids
+    assert core.FAMILY_RULES["shapecheck"] == (
+        "donated-buffer-reuse", "unladdered-jit-shape",
+        "kernel-dtype-widen", "shape-mismatch", "prewarm-coverage")
     svc = tmp_path / PKG / "service"
     svc.mkdir(parents=True)
     (svc / "gpu_sidecar.py").write_text(textwrap.dedent("""

@@ -14,11 +14,14 @@ memoized ``_gate()``).
 
 Three cases run with edits (``BY_HAND_EDITS``), on the port only. Two
 enumerate the families: the port has ``synccheck`` where the reference
-has ``jaxhazards``, and no ``shapecheck``. The third plants its
-dispatch loop in the reference's sidecar module, which the port's
-``DISPATCH_LOOPS`` names ``service/gpu_sidecar.py``. The cases of those two JAX families are left out
-(``LEFT_OUT``); ``tests/test_torch_synccheck.py`` and
-``tests/test_torch_jitsan.py`` stand in for them.
+has ``jaxhazards``, and its shapecheck fixture is torch code. The third
+plants its dispatch loop in the reference's sidecar module, which the
+port's ``DISPATCH_LOOPS`` names ``service/gpu_sidecar.py``. The
+jaxhazards cases are left out (``LEFT_OUT``): its dispatch-loop rule is
+the port's synccheck (``tests/test_torch_synccheck.py``), and its
+``jit-*`` rules guard a traced program the port does not have. The
+shapecheck fixture cases are jax programs: ``tests/test_torch_shapecheck
+.py`` holds a torch counterpart of each; its two gate cases run here.
 """
 import ast
 
@@ -36,12 +39,13 @@ PORT = PACKAGES[1]
 MIRRORED = ("test_fluidlint", "test_fluidlint_gate", "test_layer_check",
             "test_wirecheck", "test_failcheck")
 
-_JAX = ("jaxhazards reasons about jax.jit; its dispatch-loop-sync rule "
-        "is the port's synccheck (tests/test_torch_synccheck.py)")
-_SHAPE = ("shapecheck reasons about jax.jit shapes and donation; its "
-          "runtime half is testing/jitsan.py "
-          "(tests/test_torch_jitsan.py), its static half waits "
-          "(ROADMAP.md queue A)")
+_JAX = ("jaxhazards reasons about jax.jit: its dispatch-loop-sync rule "
+        "is the port's synccheck (tests/test_torch_synccheck.py), and its "
+        "jit-* rules (a frozen clock read, a host callback, a branch on a "
+        "tracer, unhashable static arguments) guard a traced program the "
+        "port does not have")
+_SHAPE = ("the fixture is a jax.jit program: tests/test_torch_shapecheck.py "
+          "holds its torch counterpart (CASES names it)")
 LEFT_OUT = {
     "test_fluidlint": {
         **{name: _JAX for name in (
@@ -80,8 +84,6 @@ LEFT_OUT = {
         )},
     },
     "test_fluidlint_gate": {
-        "test_shapecheck_family_is_in_the_gate": _SHAPE,
-        "test_shapecheck_live_tree_is_clean_within_the_ratchet": _SHAPE,
         "test_bench_records_carry_fluidlint_counts":
             "bench.py is the reference's benchmark and counts the "
             "reference's families only; the port has no bench entry "
@@ -107,12 +109,15 @@ PORT_ONLY = {
         "test_silent_handlers_registry_resolves_to_live_sites",
         "test_wall_clock_sinks_registry_resolves_to_live_sites",
         "test_concheck_live_tree_is_clean_within_the_ratchet",
+        "test_shapecheck_family_is_in_the_gate",
+        "test_shapecheck_live_tree_is_clean_within_the_ratchet",
         "test_combined_gate_run_stays_under_budget",
         "test_cli_json_mode_exits_zero_on_clean_tree",
     )),
 }
 
-# the cases run with the port's edits: two enumerate the families
+# the cases run with the port's edits: two enumerate the families (the
+# port's shapecheck fixture is torch code)
 _FIXTURE_SIDECAR = '''        "fluidframework_tpu_torch/service/tpu_sidecar.py": """
             class Sidecar:
                 def _dispatch(self, ops):
@@ -150,7 +155,23 @@ BY_HAND_EDITS = {
                 bad = jnp.zeros(RAW)
                 return pingpong(bad, batch)
         """,
-''', ""),
+''', '''        "fluidframework_tpu_torch/ops/merge_kernel.py": """
+            import torch
+
+            def apply_window_pingpong(dead, table, batch):
+                return batch.long()
+
+            RAW = 37
+
+            def dispatch(fodder, table, batch):
+                out = apply_window_pingpong(fodder, table, batch)
+                return out, fodder.count
+
+            def unladdered(table, batch):
+                bad = torch.zeros(RAW)
+                return apply_window_pingpong(bad, table, batch)
+        """,
+'''),
         # the port's dispatch loop module, with a synccheck hit in it
         (_FIXTURE_SIDECAR, _FIXTURE_SIDECAR.replace(
             "tpu_sidecar.py", "gpu_sidecar.py").replace(
@@ -159,11 +180,13 @@ BY_HAND_EDITS = {
                     "qoscheck", "concheck", "shapecheck", "detcheck",
                     "wirecheck", "failcheck"]''',
          '''    key_families = ["layercheck", "synccheck", "lockcheck",
-                    "qoscheck", "concheck", "detcheck",
+                    "qoscheck", "concheck", "shapecheck", "detcheck",
                     "wirecheck", "failcheck"]'''),
         ('''    assert {"donated-buffer-reuse", "unladdered-jit-shape",
             "kernel-dtype-widen"} <= _rules(baseline)''',
-         '''    assert "dispatch-loop-sync" in _rules(baseline)'''),
+         '''    assert {"donated-buffer-reuse", "unladdered-jit-shape",
+            "kernel-dtype-widen",
+            "dispatch-loop-sync"} <= _rules(baseline)'''),
         ('''        "tpu_sidecar.py:Sidecar.recv:except-OSError",
         "tpu_sidecar.py:Sidecar.recv:except-OSError2",''',
          '''        "gpu_sidecar.py:Sidecar.recv:except-OSError",
@@ -176,10 +199,6 @@ BY_HAND_EDITS = {
     ("test_fluidlint_gate", "test_family_rules_map_stays_complete"): (
         ('''    for rule in ("layer-undeclared", "jit-nondeterminism",''',
          '''    for rule in ("layer-undeclared",'''),
-        ('''                 "dispatch-loop-sync", "donated-buffer-reuse",
-                 "unladdered-jit-shape", "kernel-dtype-widen",
-                 "shape-mismatch", "prewarm-coverage",''',
-         '''                 "dispatch-loop-sync",'''),
     ),
 }
 
@@ -216,3 +235,15 @@ def test_left_out_cases_exist():
         named = set(LEFT_OUT.get(module, {})) | {
             n for m, n in (*PORT_ONLY, *BY_HAND_EDITS) if m == module}
         assert named <= defined, (module, named - defined)
+
+
+def test_shapecheck_cases_have_torch_counterparts():
+    """Every reference shapecheck fixture case left out here has its
+    torch counterpart in ``tests/test_torch_shapecheck.py``, and that
+    file holds no case of a name the reference lacks."""
+    from test_torch_shapecheck import CASES
+
+    shape = {n for n, why in LEFT_OUT["test_fluidlint"].items()
+             if why == _SHAPE}
+    assert len(shape) == 19
+    assert sorted(c.ref for c in CASES) == sorted(shape)

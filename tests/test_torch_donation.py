@@ -213,7 +213,9 @@ def test_prewarm_walks_the_ladder(route, donate):
     sc._apply_program = hook
     assert sc.prewarm(max_bucket=32) >= 0.0
     shapes = [(c_, w) for c_ in (16, 32, 64) for w in (16, 32)]
-    per_shape = 2 if route == "egwalker" else 1  # + the suffix's scan
+    # the donating twin and, with donation on, the plain form a grow
+    # re-applies; + the suffix's scan on the egwalker route
+    per_shape = (2 if donate else 1) + (route == "egwalker")
     assert [(c_, w) for c_, w, _ in walked] == [
         x for x in shapes for _ in range(per_shape)]
     assert [d for _, _, d in walked] == [

@@ -36,6 +36,13 @@ from fluidframework_tpu_torch.native import replay_baseline as port_baseline
 from fluidframework_tpu_torch.ops.host_replay import replay_encoded
 from fluidframework_tpu_torch.ops.merge_kernel import apply_window
 from fluidframework_tpu_torch.ops.segment_table import make_table
+from test_torch_native_build import reference_native
+
+
+@pytest.fixture(autouse=True)
+def _reference_libraries():
+    """The reference's replayer, built race-free under xdist."""
+    reference_native()
 
 
 def scan_table(enc, capacity):
@@ -71,8 +78,7 @@ def test_host_replay_matches_reference_and_scan(seed):
 
 @pytest.mark.parametrize("seed", range(12))
 def test_scan_matches_cpp_replay(seed):
-    if load_merge_replay() is None:
-        pytest.skip(f"native replayer unavailable: {merge_replay_error()}")
+    assert load_merge_replay() is not None, merge_replay_error()
     text, stream = record_op_stream(FuzzConfig(
         n_clients=3, n_steps=100, seed=seed * 17 + 3,
         remove_weight=0.3, annotate_weight=0.15,

@@ -209,6 +209,7 @@ ANALYSIS_MODULES = (
     "fluidframework_tpu_torch.analysis.wirecheck",
     "fluidframework_tpu_torch.analysis.determinism",
     "fluidframework_tpu_torch.analysis.failcheck",
+    "fluidframework_tpu_torch.analysis.shapecheck",
     "fluidframework_tpu_torch.testing.sanitizer",
     "fluidframework_tpu_torch.testing.wiresan",
     "fluidframework_tpu_torch.testing.detsan",

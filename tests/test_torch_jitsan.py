@@ -113,6 +113,101 @@ def test_tree_signatures_within_ladder_bounds(sanitizer, route):
         [sig for sig, _ in recorded]
 
 
+def _unwalked(walked, seen):
+    """The signatures per root that ``seen`` reached and the prewarm walk
+    (``walked``) did not."""
+    return {root: sorted(sigs - walked[root])
+            for root, sigs in seen.items() if sigs - walked[root]}
+
+
+def _tree_rounds(sc, seeds, per_round=8):
+    """Recorded tree streams fed ``per_round`` messages per document per
+    round, ``apply`` after each round; returns the writers' signatures."""
+    recorded = [record_tree_stream(seed) for seed in seeds]
+    for i, (_sig, stream) in enumerate(recorded):
+        sc.track(f"t{i}", "d", "t")
+        for start in range(0, len(stream), per_round):
+            for msg in stream[start:start + per_round]:
+                sc.ingest(f"t{i}", msg)
+            sc.apply()
+    sc.sync()
+    return [sig for sig, _ in recorded]
+
+
+@pytest.mark.parametrize("route,donate", [
+    ("scan", False), ("scan", True), ("chunked", True),
+    ("egwalker", False)])
+def test_prewarm_covers_serving_signatures(sanitizer, route, donate):
+    """The runtime half of shapecheck's prewarm-coverage rule: after
+    ``prewarm()``, in-ladder traffic that grows the slab twice reaches
+    no launch signature the walk did not reach."""
+    sc = GpuMergeSidecar(max_docs=4, capacity=16, max_capacity=64,
+                         executor=route, donate=donate, device="cpu",
+                         ladder=BucketLadder(16, 32))
+    sc.prewarm()
+    walked = sanitizer.launch_signatures()
+    sanitizer.reset()
+    _feed(sc, _corpus(n_steps=90))
+    assert sc.grow_count >= 2
+    assert _unwalked(walked, sanitizer.launch_signatures()) == {}
+
+
+def test_prewarm_covers_pool_admission_signatures(sanitizer):
+    """With a one-device seq mesh attached, ``prewarm`` walks the pool's
+    first-admission shapes too: the first pool admission mid-serve and
+    its incremental dispatches reach no new signature."""
+    from fluidframework_tpu_torch.parallel import make_seq_mesh
+
+    sc = GpuMergeSidecar(max_docs=2, capacity=16, max_capacity=16,
+                         executor="scan", device="cpu",
+                         seq_mesh=make_seq_mesh([torch.device("cpu")]),
+                         pool_capacity=1024, ladder=BucketLadder(16, 16))
+    sc.prewarm()
+    walked = sanitizer.launch_signatures()
+    sanitizer.reset()
+    msgs, _ = _feed(sc, _corpus(n_docs=1, n_steps=90), per_round=4)
+    assert sc.pooled_docs() == 1, "traffic must reach the pool"
+    assert _unwalked(walked, sanitizer.launch_signatures()) == {}
+
+
+@pytest.mark.parametrize("route", ["atom", "macro"])
+def test_tree_prewarm_covers_serving_signatures(sanitizer, route):
+    """``TreeSidecar.prewarm`` walks every capacity rung on both routes
+    and the pad step between rungs, and leaves the live table alone:
+    tree traffic with a grow after it reaches no new signature, and
+    every document equals its writers."""
+    sc = TreeSidecar(max_docs=4, capacity=16, max_capacity=256,
+                     executor=route, device="cpu")
+    live = sc._table
+    sc.prewarm()
+    assert sc._table is live
+    walked = sanitizer.launch_signatures()
+    rungs = len(BucketLadder.capacity_rungs(16, 256))
+    assert len(walked["tree_window"]) == rungs * 2
+    assert len(walked["tree_pad"]) == rungs - 1
+    sanitizer.reset()
+    want = _tree_rounds(sc, (1700,))
+    assert sc.grow_count >= 1
+    assert _unwalked(walked, sanitizer.launch_signatures()) == {}
+    assert sc.signature("t0", "d", "t") == want[0]
+
+
+def test_tree_prewarm_covers_pool_admission_signatures(sanitizer):
+    """With a pool attached, ``TreeSidecar.prewarm`` walks the pool's
+    first-admission signature (``_warm_pool``): the admission and the
+    pooled dispatches after it reach no new signature."""
+    sc = TreeSidecar(max_docs=2, capacity=16, max_capacity=16,
+                     executor="atom", pool_mesh=torch.device("cpu"),
+                     pool_capacity=1024, device="cpu")
+    sc.prewarm()
+    walked = sanitizer.launch_signatures()
+    sanitizer.reset()
+    want = _tree_rounds(sc, (1700,))
+    assert sc.pooled_docs() == 1, "traffic must reach the pool"
+    assert _unwalked(walked, sanitizer.launch_signatures()) == {}
+    assert sc.signature("t0", "d", "t") == want[0]
+
+
 def _window(D=3, C=16, W=8, seed=4):
     rng = np.random.default_rng(seed)
     table = windows.random_table(rng, D, C, "cpu")
@@ -133,7 +228,7 @@ def test_read_of_a_donated_table_raises(sanitizer):
     with pytest.raises(RuntimeError, match="jitsan: .*donated"):
         dead_length.sum()
     with pytest.raises(RuntimeError, match="jitsan"):
-        torch.add(dead.count, 1)
+        torch.add(dead.count, 1)  # fluidlint: disable=donated-buffer-reuse -- the trap read under test
     [event] = sanitizer.donation_events()
     assert (event.root, event.retired) == ("apply_window_pingpong", 12)
     assert sanitizer.compile_counts()["apply_window_pingpong"] == 1
@@ -142,7 +237,7 @@ def test_read_of_a_donated_table_raises(sanitizer):
 def test_donated_table_aliasing_an_input_records_a_trip(sanitizer):
     table, batch = _window()
     with pytest.raises(ValueError):
-        merge_kernel.apply_window_pingpong(table, table, batch)
+        merge_kernel.apply_window_pingpong(table, table, batch)  # fluidlint: disable=donated-buffer-reuse -- the aliasing under test
     [trip] = sanitizer.trips()
     assert trip.root == "apply_window_pingpong"
     assert "shares storage" in trip.describe()
@@ -160,7 +255,7 @@ def test_uninstall_restores_and_disarms():
     jitsan.uninstall()
     assert not jitsan.installed()
     assert merge_kernel.apply_window_pingpong is patched.__jitsan_wrapped__
-    dead.length.sum()  # the trap is gone with the sanitizer
+    dead.length.sum()  # fluidlint: disable=donated-buffer-reuse -- the trap is gone with the sanitizer
 
 
 def test_publish_compiles_feeds_the_registry(sanitizer):

@@ -345,7 +345,7 @@ def test_take_and_migrate_rows_match_reference():
         convert.table_from_numpy(arrays, "cpu"), perm))
     sharded = convert.sharded_table_from_numpy(arrays, _cpus(4))
     moved = migrate_rows(sharded, perm)
-    assert sharded.shards == []  # the source is consumed
+    assert sharded.shards == []  # fluidlint: disable=donated-buffer-reuse -- the source is consumed
     assert [t.docs for t in moved.shards] == [2, 2, 2, 2]
     for f in want:
         np.testing.assert_array_equal(got[f], want[f], err_msg=f)

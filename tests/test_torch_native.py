@@ -11,8 +11,15 @@ import numpy as np
 import pytest
 
 import chip_smoke
+from test_torch_native_build import reference_native
 
 PACKAGES = ("fluidframework_tpu", "fluidframework_tpu_torch")
+
+
+@pytest.fixture(autouse=True)
+def _reference_libraries():
+    """The reference's libraries, built race-free under xdist."""
+    reference_native()
 
 
 def _corpus(package, base, steps, clients):

@@ -23,6 +23,7 @@ from test_torch_service_layers import (
     registries_restored,
     run_mirrored,
 )
+from test_torch_native_build import reference_native
 
 MIRRORED = ("test_native_sequencer", "test_native_replay")
 LEFT_OUT: dict = {}
@@ -41,6 +42,12 @@ PORT_EDITS = (
 @pytest.fixture(autouse=True)
 def _registries_restored():
     yield from registries_restored()
+
+
+@pytest.fixture(autouse=True)
+def _reference_libraries():
+    """The reference's libraries, built race-free under xdist."""
+    reference_native()
 
 
 @pytest.mark.parametrize("package", PACKAGES)

@@ -36,6 +36,7 @@ from fluidframework_tpu.service.tree_sidecar import (
 )
 from fluidframework_tpu.testing.tree_fuzz import random_change_with_moves
 from fluidframework_tpu_torch.service import GpuMergeSidecar
+from fluidframework_tpu_torch.service import tree_sidecar as tree_sidecar_mod
 from fluidframework_tpu_torch.service.tree_sidecar import (
     ChannelKindRouter,
     TreeSidecar,
@@ -412,11 +413,35 @@ def test_default_tree_executor(monkeypatch):
         TreeSidecar(executor="scan", device="cpu")
 
 
-def test_pool_default_capacity_and_prewarm():
-    sc = TreeSidecar(max_capacity=64, pool_mesh=torch.device("cpu"),
-                     device="cpu")
+def test_pool_default_capacity_and_prewarm(monkeypatch):
+    """The pool's default capacity, and ``prewarm`` walking every
+    capacity rung on both routes (a fresh table, then a dispatch's
+    output), the pad step between rungs and the pool's first-admission
+    window, with the live table untouched."""
+    sc = TreeSidecar(max_docs=4, capacity=16, max_capacity=64,
+                     pool_mesh=torch.device("cpu"), device="cpu")
     assert sc._pool.capacity == 256  # min(max_capacity * 4, 16384)
-    assert sc.prewarm() == 0.0
+    walked = []
+    for name in ("apply_tree_window", "pad_tree_capacity"):
+        inner = getattr(tree_sidecar_mod, name)
+
+        def hook(table, *args, inner=inner, name=name, **kw):
+            route = args[1] if name == "apply_tree_window" else None
+            walked.append((name, table.docs, table.slots, route))
+            return inner(table, *args, **kw)
+
+        monkeypatch.setattr(tree_sidecar_mod, name, hook)
+    live = sc._table
+    assert sc.prewarm() >= 0.0
+    assert sc._table is live
+    want = []
+    for cap in (16, 32, 64):
+        want += [("apply_tree_window", 4, cap, r) for r in ROUTES
+                 for _ in range(2)]
+        if cap > 16:
+            want.append(("pad_tree_capacity", 4, cap // 2, None))
+    want += [("apply_tree_window", 1, 256, sc.executor)] * 2
+    assert walked == want
 
 
 # ======================================================================
