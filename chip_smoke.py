@@ -164,8 +164,11 @@ the live writers', every served signature == its log's scalar replay,
 each leg's first dispatch == plain); the "tools harness" lines before
 it are ``BenchmarkReporter.render_table()`` and ``render_json()``.
 The times lines cover the
-window rungs 16 / 32 / 64 at the main shape and the capacities 4096 and
-8192, with the NOOP share and the bound of each timed batch. Every phase
+window rungs 16 / 32 / 64 at the main shape, the capacities 4096 and
+8192 and the long-document pool's 16 x 8192 x 32 (the cluster form
+above capacity 4096: its shape and resident clusters print after the
+ptxas lines), with the NOOP share, the time per real step and the bound
+of each timed batch. Every phase
 runs on every call; any failure exits non-zero without those lines, as
 does a machine with no CUDA device or a directory without the port
 package. Imports nothing of JAX.
@@ -208,13 +211,21 @@ KERNEL_SHAPES = [  # (docs, capacity, window)
     (1000, 1024, 64),
     (1024, 512, 16),      # the routes phase: config14's table, W = 16 rung
     (128, 2048, 64),      # the first grow rung
-    (64, 4096, 64),       # edge of the shared-memory variant
-    (3, 5001, 16),        # ragged device-memory variant
-    (16, 8192, 32),       # device-memory variant
+    (64, 4096, 64),       # edge of the one-block form
+    (4, 4097, 16),        # the cluster form's first capacity
+    (3, 5001, 16),        # ragged cluster form: a partial last span
+    (16, 8192, 32),       # the cluster form at the pool's window
 ]
-NOOP_SHAPE = (64, 1024, 16)  # a window made only of NOOPs
+NOOP_SHAPES = ((64, 1024, 16), (16, 8192, 16))  # windows only of NOOPs
+# (docs, capacity, window) of the cluster form's span-boundary windows
+# (testing/windows.span_window): every lookup on the slots around each
+# span boundary, a document filled to capacity; then one whose documents
+# all fill and overflow
+SPAN_SHAPES = ((16, 8192, 32), (64, 8192, 64))
+SPAN_OVERFLOW_SHAPE = (8, 8192, 32)
 TIME_WINDOWS = (16, 32, 64)  # the main path's window rungs
-TIME_WIDE = ((1024, 4096), (512, 8192))  # (docs, capacity) at W = 64
+TIME_WIDE = ((1024, 4096, 64), (512, 8192, 64),  # (docs, capacity,
+              (16, 8192, 32))  # window); the last, the long-doc pool's
 
 
 def log(*parts) -> None:
@@ -285,23 +296,54 @@ def phase_kernel(seed: int) -> int:
         if (docs, cap) == (5, 16) and overflows == 0:
             raise AssertionError("the overflow case did not overflow")
 
-    docs, cap, window = NOOP_SHAPE
-    table = windows.random_table(rng, docs, cap, "cuda")
-    batch = windows.random_batch(rng, table, window, "cuda")
-    batch.kind.fill_(KIND_NOOP)
-    want, err = _check_window(
-        table, batch, f"D={docs} C={cap} W={window} (NOOPs only)")
-    worst = max(worst, err)
-    moved = [f for f in table._fields
-             if f != "min_seq" and not torch.equal(getattr(table, f),
-                                                   getattr(want, f))]
-    if moved:
-        raise AssertionError(f"a NOOP window changed {moved}")
-    if not torch.equal(want.min_seq, torch.maximum(
-            table.min_seq, batch.min_seq.amax(dim=1))):
-        raise AssertionError("a NOOP window did not advance min_seq")
-    log(f"kernel == plain  D={docs} C={cap} W={window} NOOPs only  "
-        f"(every slot bit-identical to the input, min_seq advanced)")
+    for docs, cap, window in NOOP_SHAPES:
+        table = windows.random_table(rng, docs, cap, "cuda")
+        batch = windows.random_batch(rng, table, window, "cuda")
+        batch.kind.fill_(KIND_NOOP)
+        want, err = _check_window(
+            table, batch, f"D={docs} C={cap} W={window} (NOOPs only)")
+        worst = max(worst, err)
+        moved = [f for f in table._fields
+                 if f != "min_seq" and not torch.equal(getattr(table, f),
+                                                       getattr(want, f))]
+        if moved:
+            raise AssertionError(f"a NOOP window changed {moved}")
+        if not torch.equal(want.min_seq, torch.maximum(
+                table.min_seq, batch.min_seq.amax(dim=1))):
+            raise AssertionError("a NOOP window did not advance min_seq")
+        log(f"kernel == plain  D={docs} C={cap} W={window} NOOPs only  "
+            f"(every slot bit-identical to the input, min_seq advanced)")
+    return max(worst, _span_windows(rng))
+
+
+def _span_windows(rng) -> int:
+    """The cluster form's span-boundary windows, kernel against plain on
+    every field; the last shape's documents must all end overflowed."""
+    from fluidframework_tpu_torch.ops import cuda_merge
+    from fluidframework_tpu_torch.testing import windows
+
+    worst = 0
+    for docs, cap, window in SPAN_SHAPES + (SPAN_OVERFLOW_SHAPE,):
+        over = docs if (docs, cap, window) == SPAN_OVERFLOW_SHAPE else 0
+        span = cuda_merge.cluster_span(cap)
+        table, batch = windows.span_window(
+            rng, docs, cap, window, span, "cuda", fill_docs=1 - bool(over),
+            overflow_docs=over)
+        want, err = _check_window(
+            table, batch, f"D={docs} C={cap} W={window} (span boundaries)")
+        worst = max(worst, err)
+        ended = want.count.cpu()
+        if over and int(want.overflow.sum()) != docs:
+            raise AssertionError(f"{docs - int(want.overflow.sum())} "
+                                 f"documents of the overflow window did "
+                                 f"not overflow")
+        if not over and int((ended == cap).sum()) < 1:
+            raise AssertionError("no document of the span window filled")
+        log(f"kernel == plain  D={docs} C={cap} W={window} span boundaries "
+            f"every {span} slots (insert target and both splits on slots "
+            f"span-2 .. span+1 of each; documents full at the end "
+            f"{int((ended == cap).sum())}, overflowed "
+            f"{int(want.overflow.sum())}; all fields bit-exact)")
     return worst
 
 
@@ -1415,6 +1457,11 @@ def phase_pool_longdoc(seed: int, long_raw: list) -> dict:
         wall = time.perf_counter() - t0
     launches = cuda_merge.LAUNCHES
     busy = _device_busy_ms(prof)
+    # B1 at the pool's capacity: the cluster form's kernel
+    b1 = [(e.self_device_time_total / 1e3, e.count)
+          for e in prof.key_averages()
+          if "merge_window_cluster_kernel" in e.key]
+    b1_ms, b1_n = sum(ms for ms, _ in b1), sum(n for _, n in b1)
     t_or = time.perf_counter()
     oracles = [_oracle(s) for s in distinct]
     _check_tiled(sidecar, doc_ids, stream_of, oracles)
@@ -1460,7 +1507,9 @@ def phase_pool_longdoc(seed: int, long_raw: list) -> dict:
         f"device busy {busy['total']:.3f} ms, "
         f"idle share {1 - busy['total'] / (wall * 1e3):.6f}, top "
         + ", ".join(f"{n} {ms:.3f} ms" for n, ms in busy["top"][:3])
-        + f"; all {POOL_DOCS} docs == oracle ({check_s:.3f} s); pool "
+        + f"; B1 at C={pool.capacity} (the cluster form) {b1_ms:.3f} ms "
+        f"of device busy in {b1_n} launches; all {POOL_DOCS} docs == "
+        f"oracle ({check_s:.3f} s); pool "
         f"dispatch kernel == plain at D={table.docs} C={table.capacity} "
         f"W={W}, all fields; that window's " + _bound_line(cost))
     return {"max_abs_err": err, "pool_launches": seen["launches"]}
@@ -3889,9 +3938,9 @@ def phase_serve() -> dict:
 # ----------------------------------------------------------------------
 # dds: the DDS catalogue's live sessions into the matrix and tree planes
 
-DDS_MATRIX_MATRICES = 16  # of config3 full's 64: a depth cut (48 until the
-# config5 and chaos phases came) that keeps the script's time (PERF.md
-# section 4)
+DDS_MATRIX_MATRICES = 8  # of config3 full's 64: a depth cut (48 until the
+# config5 and chaos phases came, 16 until the script neared its time
+# limit on a slow host) that keeps the script's time (PERF.md section 4)
 DDS_MATRIX_SEED = 1337  # config3's generator seed
 DDS_MATRIX_ROUND_OPS = 64  # ops each writer authors before the flushes
 DDS_TREE_DOCS, DDS_TREE_WRITERS, DDS_TREE_ROUNDS = 32, 3, 24  # config17
@@ -7149,20 +7198,23 @@ def phase_time(seed: int) -> dict:
         f"count): {plain_ops_ms:.4f} ms, kernel at "
         f"{plain_ops_ms / rec['ms']:.4f} of that")
     del table, full, batch
-    for docs, cap in TIME_WIDE:
+    for docs, cap, window in TIME_WIDE:
         table = windows.random_table(rng, docs, cap, "cuda")
-        batch = windows.random_batch(rng, table, W, "cuda")
-        _, err = _check_window(table, batch, f"D={docs} C={cap} W={W}")
+        batch = windows.random_batch(rng, table, window, "cuda")
+        _, err = _check_window(table, batch,
+                               f"D={docs} C={cap} W={window}")
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         apply_window(table, batch)
         kernel = _time_ms(lambda: apply_window(table, batch), 5, 10)
-        log(f"times at D={docs} C={cap} W={W}: kernel median "
-            f"{statistics.median(kernel):.4f} ms per launch (5 runs of 10 "
-            f"back-to-back launches: "
+        ms = statistics.median(kernel)
+        # a document's steps run one after another: the longest chain
+        steps = int(_real(batch.kind).sum(dim=1).max())
+        log(f"times at D={docs} C={cap} W={window}: kernel median "
+            f"{ms:.4f} ms per launch (5 runs of 10 back-to-back launches: "
             f"{[round(t, 4) for t in kernel]}), NOOP share of the batch "
-            f"{_noop_share(batch):.4f}; "
-            + _bound_line(compiled_window(table, batch)[2],
-                          statistics.median(kernel)))
+            f"{_noop_share(batch):.4f}, {1e3 * ms / max(1, steps):.3f} us "
+            f"per real step of the document with the most ({steps}); "
+            + _bound_line(compiled_window(table, batch)[2], ms))
     return rec
 
 
@@ -7205,11 +7257,13 @@ def main() -> int:
         build_s = cuda_merge.prewarm()
         log(f"kernel build + load: {build_s:.2f} s")
         for k in cuda_merge.ptxas_report(cuda_merge.BUILD_LOG):
-            where = "shared memory" if k["smem"] else "device memory"
-            log(f"  ptxas: merge_window_kernel<Q={k['q']}> (state in "
-                f"{where}, {4 * k['q']} slots per thread): "
-                f"{k['registers']} registers, spill stores "
-                f"{k['spill_stores']} B, spill loads {k['spill_loads']} B")
+            log(f"  ptxas: {cuda_merge.describe(k)}")
+        for cap in (4097, 5001, 8192):
+            shape = cuda_merge.cluster_shape(cap)
+            log(f"  cluster form at C={cap}: {shape['cluster']} CTAs per "
+                f"document of {shape['span']} slots and {shape['threads']} "
+                f"threads; cudaOccupancyMaxActiveClusters "
+                f"{shape['max_active_clusters']}")
         walls = [("start", time.perf_counter())]
 
         def mark(name):

@@ -99,9 +99,11 @@ def build() -> Path:
 
 def ptxas_report(log: str) -> list:
     """Registers and spills of each kernel instantiation in a ``ptxas
-    -v`` log: dicts with ``q`` and ``smem`` (the template arguments of
-    ``merge_window_kernel<Q, SMEM>``), ``registers``, ``spill_stores``
-    and ``spill_loads`` (bytes)."""
+    -v`` log: dicts with ``q`` (4*q slots per thread), ``smem`` (the slot
+    state in shared memory), ``cluster`` (CTAs per document: 1, or CL of
+    ``merge_window_cluster_kernel<CL, Q>``), ``registers``,
+    ``spill_stores`` and ``spill_loads`` (bytes). Also reads the names of
+    the earlier ``merge_window_kernel<Q, SMEM>``."""
     out, name, spills = [], "", (0, 0)
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -113,15 +115,49 @@ def ptxas_report(log: str) -> list:
             spills = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            args = re.search(r"merge_window_kernelILi(\d+)ELb([01])E", name)
+            kernel = re.search(
+                r"merge_window_(cluster_)?kernelI((?:L[a-z]\d+E)+)E", name)
+            args = [int(v) for v in re.findall(
+                r"L[a-z](\d+)E", kernel.group(2))] if kernel else []
+            q = smem = cluster = None
+            if kernel and kernel.group(1):
+                cluster, q, smem = args[0], args[1], True
+            elif kernel:
+                q, smem, cluster = args[0], args[1:] != [0], 1
             out.append({
-                "q": int(args.group(1)) if args else None,
-                "smem": args.group(2) == "1" if args else None,
+                "q": q, "smem": smem, "cluster": cluster,
                 "registers": int(m.group(1)),
                 "spill_stores": spills[0],
                 "spill_loads": spills[1],
             })
     return out
+
+
+def describe(k: dict) -> str:
+    """One instantiation of a ``ptxas_report`` in words."""
+    if k["cluster"] and k["cluster"] > 1:
+        form = (f"merge_window_cluster_kernel<CL={k['cluster']}, "
+                f"Q={k['q']}> (state in distributed shared memory")
+    else:
+        where = "shared memory" if k["smem"] else "device memory"
+        form = f"merge_window_kernel<Q={k['q']}> (state in {where}"
+    return (f"{form}, {4 * k['q']} slots per thread): {k['registers']} "
+            f"registers, spill stores {k['spill_stores']} B, spill loads "
+            f"{k['spill_loads']} B")
+
+
+# the kernel's constants (csrc/merge_window.cu) that place the slots of
+# a document of the cluster form (capacity above 4096) on its CTAs
+THREADS, MAX_CAPACITY, CLUSTER = 256, 8192, 8
+
+
+def cluster_span(capacity: int, cluster: int = CLUSTER) -> int:
+    """Slots each CTA of the cluster form holds at ``capacity``
+    (``cluster_span`` in the source): ceil(capacity / cluster) rounded
+    up to whole warps' runs."""
+    unit = 32 * MAX_CAPACITY // (THREADS * cluster)  # a warp's runs
+    per_cta = -(-capacity // cluster)
+    return -(-per_cta // unit) * unit
 
 
 def bind(path: Path) -> ctypes.CDLL:
@@ -132,6 +168,12 @@ def bind(path: Path) -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.merge_window_launch.restype = ctypes.c_int
+    # absent from the kernels before the cluster form (tools that time
+    # an earlier source bind it too)
+    shape = getattr(lib, "merge_window_cluster_shape", None)
+    if shape is not None:
+        shape.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        shape.restype = ctypes.c_int
     lib.merge_window_error_string.argtypes = [ctypes.c_int]
     lib.merge_window_error_string.restype = ctypes.c_char_p
     return lib
@@ -151,6 +193,24 @@ def prewarm() -> float:
     t0 = time.perf_counter()
     load_library()
     return time.perf_counter() - t0
+
+
+def cluster_shape(capacity: int, device=None) -> dict:
+    """The cluster form's shape at ``capacity`` (4096 < capacity <= 8192)
+    on ``device`` (default: the current CUDA device): CTAs per document,
+    slots and threads per CTA, and the clusters that can be resident at
+    once (``cudaOccupancyMaxActiveClusters``)."""
+    lib = load_library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        rc = lib.merge_window_cluster_shape(capacity, out)
+    if rc != 0:
+        what = ("bad arguments" if rc < 0
+                else lib.merge_window_error_string(rc).decode())
+        raise RuntimeError(f"merge_window cluster shape at capacity "
+                           f"{capacity} ({rc}): {what}")
+    return dict(zip(("cluster", "span", "threads", "max_active_clusters"),
+                    out))
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple,
@@ -217,7 +277,7 @@ def launch(lib: ctypes.CDLL, table: SegmentTable, batch: OpBatch,
         stream = torch.cuda.current_stream(table.device).cuda_stream
         rc = lib.merge_window_launch(ptrs, D, C, W, stream)
     if rc != 0:
-        what = ("bad arguments" if rc < 0
+        what = ("bad arguments" if rc == -1
                 else lib.merge_window_error_string(rc).decode())
         raise RuntimeError(f"merge_window launch failed ({rc}): {what}")
     return out

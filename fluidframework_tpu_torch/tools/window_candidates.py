@@ -4,20 +4,23 @@
         [--seed N] [--set NAME=VALUE ...] [--reference PATH ...]
 
 Each ``--set`` list (comma-separated ``NAME=VALUE`` pairs, e.g.
-``THREADS=128,MAIN_MIN_BLOCKS=4``) is one candidate: the committed
+``THREADS=128,MAIN_MIN_BLOCKS=4``; ``CLUSTER=2`` for the cluster form of
+two CTAs per document, ``SMEM_MAX_CAPACITY=2048`` to run capacity 4096
+on the cluster form too) is one candidate: the committed
 ``ops/csrc/merge_window.cu`` with those ``constexpr int`` constants
 replaced. Each ``--reference`` adds another source file with the same C
 interface as it is (an earlier kernel, unpacked from git). The committed
 source is always the first candidate.
 
 Every candidate is built with the flags of ``ops/cuda_merge.py`` into
-``_build/candidates/``, checked bit for bit against the plain version on
-seeded random states, and timed at each shape of ``SHAPES`` in turns
-(forward, then backward) with CUDA events around 10 back-to-back
-launches: the main shape (4096 documents x capacity 1024) at the window
-rungs 16 / 32 / 64, and the capacities 4096 and 8192. Prints the card,
-then one line per candidate with its ptxas registers and spills and its
-median times. Needs a CUDA device.
+``_build/candidates/`` (one ``nvcc`` per candidate, all at once),
+checked bit for bit against the plain version on seeded random states,
+and timed at each shape of ``SHAPES`` in turns (forward, then backward)
+with CUDA events around 10 back-to-back launches: the main shape (4096
+documents x capacity 1024) at the window rungs 16 / 32 / 64, the
+capacities 4096 and 8192, and the long-document pool's 16 x 8192 x 32.
+Prints the card, then one line per candidate with its ptxas registers
+and spills and its median times. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import re
 import statistics
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -36,7 +40,7 @@ from ..testing import windows
 
 SHAPES = (  # (docs, capacity, window)
     (4096, 1024, 16), (4096, 1024, 32), (4096, 1024, 64),
-    (1024, 4096, 64), (512, 8192, 64),
+    (1024, 4096, 64), (512, 8192, 64), (16, 8192, 32),
 )
 
 
@@ -44,7 +48,7 @@ def _source(settings: str) -> str:
     text = cuda_merge.SOURCE.read_text()
     for pair in filter(None, settings.split(",")):
         name, value = pair.split("=")
-        text, n = re.subn(rf"constexpr int {name} = [^;]+;",
+        text, n = re.subn(rf"constexpr int {name} =\s*[^;]+;",
                           f"constexpr int {name} = {value};", text)
         if n != 1:
             raise ValueError(f"no constant {name} in the kernel source")
@@ -58,11 +62,7 @@ def _build(text: str, tag: str):
     src.write_text(text)
     lib_path = out / f"{tag}.so"
     log = cuda_merge.compile_source(src, lib_path)
-    report = [
-        f"Q={k['q']}{'' if k['smem'] else ' device memory'}: "
-        f"{k['registers']} registers, spills {k['spill_stores']}/"
-        f"{k['spill_loads']} B"
-        for k in cuda_merge.ptxas_report(log)]
+    report = [cuda_merge.describe(k) for k in cuda_merge.ptxas_report(log)]
     return cuda_merge.bind(lib_path), report
 
 
@@ -102,10 +102,11 @@ def main() -> int:
     cands = [("committed", _source(""))]
     cands += [(s, _source(s)) for s in args.set]
     cands += [(f"reference {p}", open(p).read()) for p in args.reference]
-    libs = []
-    for i, (name, text) in enumerate(cands):
-        lib, report = _build(text, f"c{i}")
-        libs.append(lib)
+    with ThreadPoolExecutor(len(cands)) as pool:
+        built = list(pool.map(lambda c: _build(c[1][1], f"c{c[0]}"),
+                              enumerate(cands)))
+    libs = [lib for lib, _ in built]
+    for i, ((name, _), (_, report)) in enumerate(zip(cands, built)):
         print(f"[{i}] {name}: " + "; ".join(report), flush=True)
 
     rng = np.random.default_rng(args.seed + 1)
