@@ -54,8 +54,9 @@ PACKAGE = Path(__file__).resolve().parent.parent
 
 # module (path under the package) -> (loop root functions, sync
 # boundaries). The sidecars' loops end at ``_settle`` / ``sync``; the
-# route and pool modules' dispatch halves and the obs / qos entry points
-# the loop calls must be sync-free all through.
+# window kernel's launch at its one wait for the window before it; the
+# route and pool modules' dispatch halves, the upload and the obs / qos
+# entry points the loop calls must be sync-free all through.
 DISPATCH_LOOPS = {
     "service/gpu_sidecar.py": (
         ("apply", "ingest", "_dispatch", "_compile_program", "_to_device",
@@ -85,6 +86,17 @@ DISPATCH_LOOPS = {
         ("build_event_graph", "apply_window_egwalker",
          "apply_window_egwalker_pingpong"),
         (),
+    ),
+    # the op programs' upload, which every loop above reaches: sync-free
+    # all through (pinned staging, copies on a copy stream)
+    "convert.py": (("program_to_device", "_staged", "_copy_stream"), ()),
+    # the window kernel's launch, which every loop above reaches: its
+    # one host wait, for the window launched before it on the stream
+    # (at most one window queued behind the running one), is the
+    # boundary; the checks and the launch before it must be sync-free
+    "ops/cuda_merge.py": (
+        ("apply_window_cuda", "launch", "_queue"),
+        ("_wait_for_window",),
     ),
     # the obs and qos entry points the loop calls into: host timestamps
     # and already-host scalars only

@@ -12,9 +12,16 @@ For the tree plane the numpy side is the reference's ``TreeTable`` /
 ``np.asarray`` per field).
 Only numpy crosses the boundary, so the two packages can be fed
 identical state without either importing the other.
+
+On a CUDA device an op program's upload (``program_to_device``) never
+syncs a stream: its fields are staged in pinned host memory and copied
+on the device's copy stream, which the caller's current stream waits
+for on the device.
 """
 from __future__ import annotations
 
+import functools
+import threading
 from typing import TYPE_CHECKING, Mapping, Union
 
 import numpy as np
@@ -29,11 +36,74 @@ if TYPE_CHECKING:
 Device = Union[torch.device, str]
 
 
-def _to_device(arr, device: Device) -> torch.Tensor:
+def _host_int32(arr) -> np.ndarray:
+    """The int32 host array that crosses to the device: contiguous,
+    ``uint32`` as the int32 view of its bits, any other dtype cast as
+    ``astype(np.int32)`` casts it."""
     arr = np.ascontiguousarray(arr)
     if arr.dtype == np.uint32:
         arr = arr.view(np.int32)  # same bits; torch has no uint32 >>
-    return torch.tensor(arr.astype(np.int32, copy=False), device=device)
+    return arr.astype(np.int32, copy=False)
+
+
+def _to_device(arr, device: Device) -> torch.Tensor:
+    return torch.tensor(_host_int32(arr), device=device)
+
+
+# device index -> its copy stream and the event the stream records after
+# each upload's copies
+_COPY: dict[int, tuple] = {}
+_COPY_LOCK = threading.Lock()
+
+
+@functools.cache
+def _staged_total():
+    from .obs.metrics import REGISTRY
+
+    return REGISTRY.counter(
+        "upload_staged_total",
+        "op program uploads staged through pinned host memory")
+
+
+def _copy_stream(device: torch.device) -> tuple:
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    copy = _COPY.get(index)
+    if copy is None:
+        with _COPY_LOCK:
+            copy = _COPY.get(index)
+            if copy is None:
+                device = torch.device("cuda", index)
+                copy = _COPY[index] = (torch.cuda.Stream(device),
+                                       torch.cuda.Event())
+    return copy
+
+
+def _staged(arrays: dict, device: torch.device) -> dict[str, torch.Tensor]:
+    """``arrays`` (numpy) -> int32 tensors on the CUDA ``device``, one
+    fresh tensor per field, ready for the current stream's later work.
+    Each field is written into pinned memory from torch's host
+    allocator, which hands a block out again only once its copy is
+    done, and copied on the device's copy stream; the current stream
+    waits for the copies on the device, the host not at all."""
+    stream, done = _copy_stream(device)
+    current = torch.cuda.current_stream(device)
+    out = {}
+    with torch.cuda.stream(stream):
+        for f, a in arrays.items():
+            a = _host_int32(a)
+            pinned = torch.empty(a.shape, dtype=torch.int32,
+                                 pin_memory=True)
+            host = pinned.numpy()  # synccheck: disable=numpy a host tensor
+            np.copyto(host, a)
+            out[f] = pinned.to(device, non_blocking=True)
+        done.record(stream)
+    current.wait_event(done)
+    for t in out.values():
+        t.record_stream(current)
+    _staged_total().inc()
+    return out
 
 
 def table_from_numpy(arrays: Mapping[str, np.ndarray],
@@ -82,15 +152,24 @@ def program_to_device(arrays: Mapping[str, np.ndarray],
     """A compiled op program's ``[docs, window]`` arrays (an ``OpBatch``
     window, a chunk program, an egwalker prefix) -> int32 tensors on
     ``device``, one host-to-device copy per field. Tensors already
-    given are moved to ``device`` as they are. Span ``upload``."""
+    given are moved to ``device`` as they are. Span ``upload``.
+
+    On a CUDA device the numpy fields are written into pinned host
+    memory and copied on the device's copy stream; the caller's current
+    stream waits for the copies on the device, and the host returns
+    without waiting for them. The caller may reuse its arrays at once.
+    Elsewhere each field is one blocking copy."""
     from .obs.profiler import span
 
     with span("upload", device):
-        return {
-            f: a.to(device) if isinstance(a, torch.Tensor)
-            else _to_device(a, device)
-            for f, a in arrays.items()
-        }
+        host = {f: a for f, a in arrays.items()
+                if not isinstance(a, torch.Tensor)}
+        if host and torch.device(device).type == "cuda":
+            staged = _staged(host, torch.device(device))
+        else:
+            staged = {f: _to_device(a, device) for f, a in host.items()}
+        return {f: staged[f] if f in staged else a.to(device)
+                for f, a in arrays.items()}
 
 
 def batch_from_numpy(arrays, device: Device) -> OpBatch:

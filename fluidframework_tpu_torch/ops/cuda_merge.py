@@ -8,13 +8,16 @@ package (keyed by a hash of the source and the flags), and loaded with
 ``ctypes``. Nothing is built or loaded when this module is imported.
 
 ``apply_window_cuda`` launches the kernel on the current CUDA stream or
-raises; it never falls back to the plain version. ``LAUNCHES`` counts
-the launches this process made, ``BUILDS`` the ``nvcc`` builds per
-library (source hash).
+raises; it never falls back to the plain version. At most one window
+waits on a stream behind the one running there: after a launch the
+host waits for the window launched before it on the same stream.
+``LAUNCHES`` counts the launches this process made, ``BUILDS`` the
+``nvcc`` builds per library (source hash).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -47,6 +50,12 @@ _lib = None
 # ptxas report (registers, shared memory, spills) of the build that this
 # process made, or "" when the library was already built
 BUILD_LOG = ""
+
+# (device index, stream handle) -> the stream's two queue events, the
+# last launched window's first: each launch records the other one, then
+# waits for the one before it
+_QUEUED: dict[tuple, list] = {}
+_queued_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -231,9 +240,13 @@ def apply_window_cuda(table: SegmentTable, batch: OpBatch,
     """Launch the window kernel: apply ``batch`` to ``table`` into
     ``out`` (a donated table of the same shape, written and never read)
     or, by default, a freshly allocated output table; the input stays
-    untouched. Returns at enqueue; raises on any input the kernel does
-    not take, on an ``out`` that shares storage with an input, or on a
-    refused launch. Span ``b1.apply``."""
+    untouched. Returns once the window launched before this one on the
+    current stream has finished on the device, so at most one window
+    waits behind the running one; this window may still be queued or
+    running. Raises on any input the kernel does not take, on an ``out``
+    that shares storage with an input, or on a refused launch. Spans
+    ``b1.apply`` (checks and launch, the launch its last work) and,
+    where the host waits, ``b1.wait``."""
     from ..obs.profiler import span
 
     global LAUNCHES
@@ -260,7 +273,49 @@ def apply_window_cuda(table: SegmentTable, batch: OpBatch,
             check_donated(out, table, batch)
         out = launch(load_library(), table, batch, out)
         LAUNCHES += 1
+    previous = _queue(device)
+    if not previous.query():
+        _wait_for_window(previous, device)
     return out
+
+
+def _queue(device: torch.device) -> torch.cuda.Event:
+    """Record the window just launched on ``device``'s current stream in
+    the stream's older queue event (the window two back, already waited
+    for); returns the other, the window launched there before this one
+    (never recorded, so done, before the stream's second launch)."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    with _queued_lock:
+        pair = _QUEUED.get(key)
+        if pair is None:
+            pair = _QUEUED[key] = [torch.cuda.Event(), torch.cuda.Event()]
+        previous, done = pair
+        done.record(stream)
+        pair[:] = [done, previous]
+    return previous
+
+
+@functools.cache
+def _inflight_waits():
+    from ..obs.metrics import REGISTRY
+
+    return REGISTRY.counter(
+        "b1_inflight_waits_total",
+        "window kernel launches whose host found the previous window on "
+        "its stream still running")
+
+
+def _wait_for_window(previous: torch.cuda.Event,
+                     device: torch.device) -> None:
+    """The host's wait for the window launched before the one just
+    queued: the bound of one window queued behind the running one, and
+    the only host wait of a launch. Span ``b1.wait``."""
+    from ..obs.profiler import span
+
+    _inflight_waits().inc()
+    with span("b1.wait", device):
+        previous.synchronize()
 
 
 def launch(lib: ctypes.CDLL, table: SegmentTable, batch: OpBatch,
