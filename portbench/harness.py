@@ -155,11 +155,13 @@ def run_batch(lane: Lane, rounds: list, marks: Marks, win: Window,
     end or the deadline passes. Returns the batch: its index, the rounds
     it applied, its last table, every round's tickets and ``whole``.
 
-    ``convert.batch_from_numpy``'s copies from pageable memory wait for
-    the device's earlier work on the stream. In a ``traced`` run the
-    host waits for that work before the upload's clock starts, so that
-    the upload's span holds the copies alone; the copies would have
-    waited as long, so the loop keeps its pace."""
+    ``convert.batch_from_numpy`` does not wait for the device's earlier
+    work: on a card it writes the fields into pinned host memory and
+    copies them on a copy stream, and the apply waits on the host only
+    for the window before it. In a ``traced`` run the host still drains
+    the device before the upload's clock starts (``tw``), so that the
+    upload's span times its host work against an idle card; that drain
+    adds device idle time, and a wait, that an untraced run lacks."""
     t0 = time.perf_counter()
     seqs, table = lane.open()
     win.opens.append((t0, time.perf_counter()))

@@ -1,22 +1,30 @@
 """What the per-metric readers read: one run's window, its trace and
 the reference's work counts, as plain arrays.
 
-``rounds`` columns (one row per round of the window): ``rows`` op rows
-applied, ``msgs`` messages ticketed, ``refused``; the host clock at the
-start of the ticket (``ta``), at the end of the ticket (``tb``) and of
-the stamp (``tc``), at the upload's start (``tw``: after the wait for
-the device's earlier work in a traced run, ``tc`` otherwise), at its
-end (``td``) and at the apply's enqueue (``te``); ``end`` the host clock
-at which the device finished the apply; ``least_s`` the apply's least
-time by the roofline (NaN without the reference's counts). In a traced
-run, ``trace`` holds ``trace.read``'s dict, the B1 kernels' own times
-among them.
+A lane's window gives a ``Window``. Its ``rounds`` columns (one row per
+round of the window) that every lane fills: ``rows`` the units of work
+applied (op rows in the array lane), ``msgs`` the messages submitted,
+the host clock at the round's start (``ta``) and at the enqueue of its
+window kernel (``te``), and ``end`` the host clock at which the device
+finished the round; a lane's own columns sit beside them (the array
+lane's are described in its file). ``collect`` adds ``least_s``, each
+round's least time by the roofline (NaN where the lane gives none). In a
+traced run, ``trace`` holds ``trace.read``'s dict, the window kernel's
+own times among them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+
+
+@dataclass
+class Window:
+    rounds: dict             # column -> float array, one row per round
+    opens: np.ndarray        # [batches, 2]: host clock around each open
+    t_start: float
+    t_end: float
 
 
 @dataclass
@@ -28,15 +36,13 @@ class Readings:
     trace: dict | None       # trace.read's dict in a traced run
 
 
-def collect(win, setup_s: float, least=None, trace=None) -> Readings:
-    """Readings of ``win`` (``harness.Window``); ``least[r]`` is the
-    least time of round ``r`` of a batch."""
-    recs = win.rounds
-    cols = {k: np.array([r[i] for r in recs], float) for i, k in
-            enumerate(("batch", "round", "rows", "msgs", "refused",
-                       "ta", "tb", "tc", "tw", "td", "te", "end"))}
-    cols["least_s"] = (np.asarray(least)[cols["round"].astype(int)]
-                       if least is not None else np.full(len(recs), np.nan))
-    return Readings(rounds=cols, opens=np.array(win.opens).reshape(-1, 2),
+def collect(win: Window, setup_s: float, least=None,
+            trace=None) -> Readings:
+    """Readings of ``win``; ``least[i]`` is the least time of the
+    window's round ``i``."""
+    cols = dict(win.rounds)
+    cols["least_s"] = (np.asarray(least, float) if least is not None
+                       else np.full(len(cols["ta"]), np.nan))
+    return Readings(rounds=cols, opens=win.opens,
                     window_s=win.t_end - win.t_start, setup_s=setup_s,
                     trace=trace)

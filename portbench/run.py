@@ -4,9 +4,10 @@
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> \\
         --trace <0|1>
 
-Run from the root of a checkout of the repository. The cell's sessions
-are recorded from ``--seed``; one whole batch warms the lane; the window
-lasts ``--seconds``; then the plain reference judges the kept batches.
+Run from the root of a checkout of the repository. The cell's lane
+(``portbench/lanes/``) makes its traffic from ``--seed`` and warms every
+shape the window uses; the window lasts ``--seconds``; then the plain
+reference judges what the window produced.
 The last line of standard output is one JSON object (``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
 ``breakdown``; ``checks`` last), and the last lines of standard error
@@ -76,7 +77,7 @@ def run_cell(cell, args, recording):
     log(f"{args.workload} seed {args.seed} seconds {args.seconds} trace "
         f"{args.trace}; torch {torch.__version__} cuda {torch.version.cuda}")
     return cells.run(cell, args.seed, args.seconds, bool(args.trace),
-                     "cuda", T0, sessions=recording, log=log)
+                     "cuda", T0, recording=recording, log=log)
 
 
 def main(argv=None) -> int:
@@ -95,12 +96,11 @@ def main(argv=None) -> int:
         os.environ[var] = str(ROOT / ".portbench_cache" / sub)
     sys.path.insert(0, str(ROOT))
     from portbench import cell as cells
-    from portbench import generator
 
     cell = cells.load_cell(ROOT, args.workload)
-    # the traffic is recorded in spawned processes while this one loads
+    # the traffic is made in spawned processes while this one loads
     # torch and the program and reaches the card
-    recording = generator.Recording(cell.config, args.seed, RECORD_WORKERS)
+    recording = cell.lane.Recording(cell.config, args.seed, RECORD_WORKERS)
     try:
         result = run_cell(cell, args, recording)
     finally:

@@ -178,7 +178,8 @@ def test_trace_reads_a_drifting_clock_and_a_lost_launch(lost):
     window, is carried onto the rounds: busy time inside the window only,
     every B1 kernel's time, and a launch the profiler lost counted."""
     from portbench import trace
-    from portbench.harness import Window
+    from portbench.lanes import array
+    from portbench.readings import Window
 
     rng = np.random.default_rng(3)
     n = 400
@@ -195,13 +196,18 @@ def test_trace_reads_a_drifting_clock_and_a_lost_launch(lost):
                     for e, t in zip(end[keep], took[keep])] + [
                 ("Memcpy HtoD", 100.0, 100.5)]   # before the window
 
-    win = Window(marks=None, t_start=ta[0] - 1e-3, t_end=host_end[-1] + 1e-3)
-    for k in range(n):
-        win.rounds.append([0, k, 1, 1, 0] + [ta[k] + 1e-4 * i
-                                             for i in range(6)] + [host_end[k]])
-    got = trace.read(Fake(), win)
+    cols = {c: ta + 1e-4 * i for i, (c, _) in enumerate(array.PHASES)}
+    cols["end"] = host_end
+    win = Window(rounds=cols, opens=np.zeros((0, 2)),
+                 t_start=ta[0] - 1e-3, t_end=host_end[-1] + 1e-3)
+    got = trace.read(Fake(), win, array.PHASES, array.KERNEL,
+                     {"b1_sum": "merge_window", "copy": "Memcpy"})
     assert got["b1_lost"] == len(lost)
     assert got["b1_kernel_s"] == pytest.approx(list(took[keep]))
     assert got["busy_s"] == pytest.approx(took[keep].sum(), rel=1e-3)
+    assert got["b1_sum_s"] == pytest.approx(took[keep].sum(), rel=1e-3)
+    assert got["copy_s"] == 0
     assert got["device_ops"][0][0].startswith("merge_window")
     assert len(got["device_ops"]) == 1
+    with pytest.raises(RuntimeError, match="launches of 'no_such_kernel'"):
+        trace.read(Fake(), win, array.PHASES, ("x", "no_such_kernel"))

@@ -6,6 +6,7 @@ import re
 import pytest
 
 from portbench import cell as cells
+from portbench.lanes import DEFAULT as DEFAULT_LANE
 
 from .conftest import ROOT
 
@@ -55,10 +56,18 @@ def test_metric_entries():
     assert layers
 
 
+def _holds(d: dict, keys) -> None:
+    """Each of ``keys`` in ``d``, and every number among them above 0."""
+    for k in keys:
+        assert k in d, (d.get("name"), k)
+        if isinstance(d[k], (int, float)):
+            assert d[k] > 0, (d.get("name"), k)
+
+
 @pytest.mark.parametrize("w", [w["name"] for w in SPEC["workloads"]])
 def test_cell_files_found_by_name(w):
     cell = cells.load_cell(ROOT, w)
-    assert cell.config["docs"] > 0 and cell.traffic["messages_per_round"] > 0
+    _holds(cell.traffic, cell.lane.TRAFFIC_KEYS)
     assert "setup_s" in cell.metrics and len(cell.metrics) >= 2
     assert cell.traced_metrics
     for name in list(cell.metrics) + list(cell.traced_metrics):
@@ -69,10 +78,31 @@ def test_config_files_hold_source_reduced_assumed():
     for c in SPEC["configs"]:
         cfg = json.loads((ROOT / c["file"]).read_text())
         assert cfg["name"] == c["name"]
-        for k in ("source", "reduced", "assumed", "guarantees", "docs", "messages",
-                  "clients", "capacity", "sessions", "steps", "mix"):
+        for k in ("source", "deployment", "reduced", "assumed",
+                  "guarantees"):
             assert k in cfg, (c["name"], k)
         assert c["file"].startswith("portbench/configs/")
+
+
+@pytest.mark.parametrize("c", SPEC["configs"], ids=lambda c: c["name"])
+def test_config_files_hold_their_lanes_keys(c):
+    """Each configuration holds the keys its lane reads; the lane's file
+    gives what ``lanes/__init__.py`` asks of a lane."""
+    cfg = json.loads((ROOT / c["file"]).read_text())
+    lane = cells.load_lane(ROOT, cfg.get("lane", DEFAULT_LANE))
+    for attr in ("CONFIG_KEYS", "TRAFFIC_KEYS", "Recording", "Run",
+                 "PHASES", "KERNEL", "SUMS", "slices", "extras"):
+        assert hasattr(lane, attr), (c["name"], attr)
+    _holds(cfg, lane.CONFIG_KEYS)
+
+
+def test_array_lane_reads_what_the_array_configs_held():
+    from portbench.lanes import array
+
+    assert set(array.CONFIG_KEYS) == {"docs", "messages", "clients",
+                                      "capacity", "sessions", "steps", "mix"}
+    assert array.TRAFFIC_KEYS == ("messages_per_round",)
+    assert array.KERNEL == ("b1", "merge_window")
 
 
 def test_split_metric_falls_back_to_its_quantity_reader():

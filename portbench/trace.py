@@ -2,35 +2,39 @@
 whole window, read once the window has closed.
 
 Device intervals are every kernel, copy and fill the trace holds. The
-trace's clock is tied to the host's by the window's own B1 launches:
-each round's apply ends on the device where the round's CUDA event puts
-it on the host clock. With as many ``merge_window`` kernels as rounds,
-the k-th kernel is the k-th round's, and the gap between the two clocks
-is read round by round (it drifts, and now and then steps, by tenths of
-a millisecond over a window). Where the profiler lost launches from its
-records, the gap is read at the window's two ends, from the 20 rounds
-whose ends agree best with the first and the last 20 kernels', and
-carried straight between them. From that:
+trace's clock is tied to the host's by the lane's window kernel (its
+``KERNEL``: one launch a round, whose name holds the lane's pattern;
+``merge_window``, B1, in the array lane): each round's window kernel
+ends on the device where the round's device mark puts it on the host
+clock. With as many launches as rounds, the k-th launch is the k-th
+round's, and the gap between the two clocks is read round by round (it
+drifts, and now and then steps, by tenths of a millisecond over a
+window). Where the profiler lost launches from its records, the gap is
+read at the window's two ends, from the 20 rounds whose ends agree best
+with the first and the last 20 launches', and carried straight between
+them. From that:
 
 - ``busy_s``: the union of device intervals inside the window;
-- ``b1_kernel_s``: every B1 launch's device time in the window, and
-  ``b1_lost`` the launches the trace lost;
+- ``<name>_kernel_s``: every window kernel launch's device time in the
+  window, and ``<name>_lost`` the launches the trace lost (``b1_...`` in
+  the array lane);
+- ``<name>_s`` for each of the lane's ``SUMS``: the device time inside
+  the window of the operations whose names hold its pattern;
 - ``device_ops``: device time by operation name, the ten largest;
 - ``idle_gaps``: the device's idle time inside the window by what the
   host was doing then (a phase of a round, a batch's open, or the time
-  between a round's apply and the next round's ticket), the ten
+  between a round's last phase and the next round's first), the ten
   largest.
 
-A trace that holds no device event while B1 launched is an error, and
-so is one that lost more than ``MAX_LOST`` of the launches or holds
-more than the window made.
+A trace that holds no device event, or no launch of the window kernel,
+is an error, and so is one that lost more than ``MAX_LOST`` of the
+launches or holds more than the window made.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-B1_NAME = "merge_window"
 MAX_LOST = 0.01    # the share of launches the trace may lose
 
 
@@ -70,15 +74,15 @@ def _union(intervals: np.ndarray) -> np.ndarray:
     return np.array(out)
 
 
-def host_phases(win) -> tuple:
+def host_phases(win, phases) -> tuple:
     """Start times (sorted) and labels of what the host did in the
-    window: each batch's open, each round's phases, the rest."""
+    window (a ``readings.Window``): each batch's open, each round's
+    ``phases`` (``(column, label)``, in order), the rest."""
     spans = [(t0, "open") for t0, _ in win.opens]
     spans += [(t1, "between rounds") for _, t1 in win.opens]
-    for rec in win.rounds:
-        ta, tb, tc, tw, td, te = rec[5:11]
-        spans += [(ta, "ticket"), (tb, "stamp"), (tc, "wait before upload"),
-                  (tw, "upload"), (td, "apply"), (te, "between rounds")]
+    cols = [(win.rounds[c], label) for c, label in phases]
+    for i in range(len(win.rounds["end"])):
+        spans += [(col[i], label) for col, label in cols]
     spans.sort(key=lambda s: s[0])
     return np.array([s[0] for s in spans]), [s[1] for s in spans]
 
@@ -93,18 +97,23 @@ def _edge_gap(ends: np.ndarray, hosts: list) -> tuple:
     return float(h.mean()), float(np.median(ends - h))
 
 
-def read(trace: Trace, win) -> dict:
-    """``busy_s``, ``window_s``, ``device_ops``, ``idle_gaps`` and the B1
-    kernels' times of the traced window (see the module's docstring)."""
+def read(trace: Trace, win, phases, kernel: tuple,
+         sums: dict | None = None) -> dict:
+    """``busy_s``, ``window_s``, ``device_ops``, ``idle_gaps``, the window
+    kernel's times and the summed times of the traced window (a
+    ``readings.Window``), for a lane's ``PHASES``, ``KERNEL`` and
+    ``SUMS`` (see the module's docstring)."""
+    kernel_name, pattern = kernel
     events = trace.device_events()
-    b1 = sorted((a, b) for n, a, b in events if B1_NAME in n)
-    host = np.array([rec[-1] for rec in win.rounds])
-    lost = len(host) - len(b1)
-    if not events or not b1 or lost < 0 or lost > MAX_LOST * len(host):
+    launches = sorted((a, b) for n, a, b in events if pattern in n)
+    host = np.asarray(win.rounds["end"], float)
+    lost = len(host) - len(launches)
+    if not events or not launches or lost < 0 or \
+            lost > MAX_LOST * len(host):
         raise RuntimeError(f"the device trace holds {len(events)} events "
-                           f"and {len(b1)} B1 launches while the "
-                           f"window made {len(host)}")
-    ends = np.array([b for _, b in b1])
+                           f"and {len(launches)} launches of {pattern!r} "
+                           f"while the window made {len(host)}")
+    ends = np.array([b for _, b in launches])
     if lost == 0:
         def to_trace(t):
             return np.asarray(t) + np.interp(t, host, ends - host)
@@ -134,7 +143,7 @@ def read(trace: Trace, win) -> dict:
     xs = gaps.reshape(-1)
     ys = np.concatenate([[0.0], np.cumsum(gaps[:, 1] - gaps[:, 0])])
     ys = np.stack([ys[:-1], ys[1:]], axis=1).reshape(-1)
-    starts, labels = host_phases(win)
+    starts, labels = host_phases(win, phases)
     bounds = np.clip(to_trace(np.concatenate([[win.t_start], starts,
                                               [win.t_end]])), lo, hi)
     share = np.diff(np.interp(bounds, xs, ys)) if len(xs) else \
@@ -143,7 +152,12 @@ def read(trace: Trace, win) -> dict:
     for label, t in zip(["before the first round"] + labels, share):
         idle[label] = idle.get(label, 0.0) + float(t)
     gaps = sorted(idle.items(), key=lambda kv: -kv[1])[:10]
-    return {"busy_s": busy_s, "window_s": win.t_end - win.t_start,
-            "b1_kernel_s": [b - a for a, b in b1], "b1_lost": lost,
-            "device_ops": [[n[:80], s] for n, s in ops],
-            "idle_gaps": [[f"host in {n}", s] for n, s in gaps]}
+    out = {"busy_s": busy_s, "window_s": win.t_end - win.t_start,
+           f"{kernel_name}_kernel_s": [b - a for a, b in launches],
+           f"{kernel_name}_lost": lost,
+           "device_ops": [[n[:80], s] for n, s in ops],
+           "idle_gaps": [[f"host in {n}", s] for n, s in gaps]}
+    for key, pat in (sums or {}).items():
+        out[f"{key}_s"] = sum(min(b, hi) - max(a, lo) for n, a, b in events
+                              if pat in n and b > lo and a < hi)
+    return out
